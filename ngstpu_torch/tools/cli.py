@@ -1,0 +1,61 @@
+"""`ngstpu-torch` CLI: the port's subcommands, with ngstpu's flags and outputs.
+
+    python -m ngstpu_torch.tools.cli [--device DEV] <tool> [args...]
+
+DEV defaults to ``cuda``; without a CUDA device the run fails rather than
+falling back to the CPU. ``--device cpu`` runs the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import importlib
+import sys
+import zlib
+
+TOOLS = {
+    "fastq_count": "ngstpu_torch.tools.fastq_count",
+    "pipeline": "ngstpu_torch.tools.pipeline",
+}
+
+
+def _usage() -> int:
+    sys.stderr.write("usage: ngstpu-torch [--device DEV] <tool> [args...]\n"
+                     "tools:\n")
+    for name in TOOLS:
+        sys.stderr.write(f"  {name}\n")
+    return 1
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    device = "cuda"
+    if argv[:1] == ["--device"]:
+        if len(argv) < 2:
+            return _usage()
+        device, argv = argv[1], argv[2:]
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        return _usage()
+    name = argv[0]
+    if name not in TOOLS:
+        sys.stderr.write(f"ngstpu-torch: unknown tool '{name}'\n")
+        return 2
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)  # raises without the requested device
+    mod = importlib.import_module(TOOLS[name])
+    try:
+        return mod.main(argv[1:], device=dev) or 0
+    except FileNotFoundError as e:
+        sys.stderr.write(f"ngstpu-torch {name}: {e}\n")
+        return 1
+    except (ValueError, EOFError, zlib.error) as e:
+        # malformed input (bad FASTQ record structure, truncated gzip
+        # streams) fails cleanly like a CLI, not with a traceback
+        sys.stderr.write(f"ngstpu-torch {name}: invalid input: {e}\n")
+        return 1
+    except BrokenPipeError:
+        return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,71 @@
+"""The port runs where jax cannot be imported."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+SLICE = ["ngstpu_torch", "ngstpu_torch.kernels.build",
+         "ngstpu_torch.kernels.hist_cuda", "ngstpu_torch.ops.count",
+         "ngstpu_torch.ops.sortengine", "ngstpu_torch.tools.cli",
+         "ngstpu_torch.tools.emitters", "ngstpu_torch.tools.fastq_count",
+         "ngstpu_torch.tools.pipeline",
+         "ngstpu_torch.tools.profile_pipeline", "ngstpu_torch.testing.fixtures",
+         "ngstpu_torch.utils.device", "ngstpu_torch.utils.linkprobe"]
+
+CHILD = r"""
+import importlib, os, sys
+
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+sys.meta_path.insert(0, _NoJax())
+for mod in sys.argv[2:]:
+    importlib.import_module(mod)
+
+from ngstpu.testing.fixtures import random_fastq
+from ngstpu_torch.tools import cli
+
+d = sys.argv[1]
+open(f"{d}/acgt.fq", "wb").write(random_fastq(200, 60, seed=1, dup_frac=0.3))
+open(f"{d}/n.fq", "wb").write(random_fastq(200, 60, seed=2, with_n=True,
+                                            dup_frac=0.3))
+for name in ("acgt", "n"):
+    rc = cli.main(["--device", "cpu", "pipeline", "-i", f"{d}/{name}.fq",
+                   "-o", f"{d}/{name}", "-e", "30"])
+    assert rc == 0, rc
+    assert os.path.getsize(f"{d}/{name}_uniq.fq") > 0
+rc = cli.main(["--device", "cpu", "fastq_count", f"{d}/n.fq"])
+assert rc == 0, rc
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+assert "jax" not in sys.modules and not loaded, loaded
+print("NOJAX-OK")
+"""
+
+
+def test_slice_runs_without_jax(tmp_path):
+    env = {**os.environ, "HOME": str(tmp_path), "NGSTPU_SHM_POOL": "0",
+           "NGSTPU_LINK": "device", "NGSTPU_QC": "device",
+           "PYTHONPATH": str(REPO)}
+    r = subprocess.run([sys.executable, "-c", CHILD, str(tmp_path), *SLICE],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert "NOJAX-OK" in r.stdout
+
+
+def test_no_jax_import_lines():
+    pat = re.compile(r"^\s*(import|from)\s+jax\b")
+    hits = [f"{p}:{i}" for p in (REPO / "ngstpu_torch").rglob("*.py")
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if pat.match(line)]
+    hits += [f"chip_smoke.py:{i}" for i, line in enumerate(
+        (REPO / "chip_smoke.py").read_text().splitlines(), 1)
+        if pat.match(line)]
+    assert not hits
