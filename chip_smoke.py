@@ -9,18 +9,24 @@ functions on CPU tensors, then drives the count+trim+uniq pipeline at the
 composite's real size (2,097,152 reads x 100 bp) on both device routes,
 with the placement forced to the card and with the default placement that
 the link probe picks, and byte-compares every output file with a
-host-placement run on the CPU.
+host-placement run on the CPU. Then it drives the sort-engine tools at the
+10M-read dedup/sort benchmark's size (gzfastq_uniq, gzfastq_sort -s/-n;
+fast and generic routes and the default placement), gzfastq_uniq PE,
+gzfastq_uniqQ, gzfastq_uniq_sort, ordered_uniq and the 2-bit codec, each
+byte-compared with a run of the port on the CPU.
 Any failed check exits non-zero. The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
-import filecmp
+import contextlib
+import io
 import itertools
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -34,6 +40,7 @@ HIST_SHAPES = ((262144, 128), (262144, 640))  # (rows, cycles)
 SORT_ROWS, SORT_WORDS = 1 << 21, 7
 N_READS, READ_LEN, TRIM = 1 << 21, 100, (0, 50)
 OUTPUTS = (".count.tsv", ".trim.fastq", "_uniq.fq", "_sortKeyUniq.fq")
+BIG_READS = 10_000_000  # bench.py's gzfastq_uniq + gzfastq_sort input
 
 
 def fail(msg: str) -> None:
@@ -68,6 +75,20 @@ def cuda_ms(fn, iters: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def same_file(a: pathlib.Path, b: pathlib.Path) -> bool:
+    """Byte equality; gzip files compare decompressed."""
+    import gzip
+
+    opener = gzip.open if a.name.endswith(".gz") else open
+    with opener(a, "rb") as fa, opener(b, "rb") as fb:
+        while True:
+            x, y = fa.read(64 << 20), fb.read(64 << 20)
+            if x != y:
+                return False
+            if not x:
+                return True
 
 
 def phase_kernel(rng, card: str) -> dict:
@@ -145,6 +166,33 @@ def phase_sorts(rng) -> None:
     print(f"sorts B={B} W={W} n_valid={n_valid}: sort_partition "
           f"(length_key both ways) and dedup_sorted perm/is_head equal on "
           f"cuda and cpu; groups {int(res[gpu]['n_groups'])}")
+    del args, res
+    # dedup_groups' device bytes per row against the model behind
+    # DEVICE_DEDUP_LIMIT (ops/sortengine.py): max(8W + 78, 17W + 30)
+    for b in (B, BIG_READS):
+        words_np = rng.integers(0, 1 << 32, (b, W), dtype=np.uint32)
+        lens_np = rng.integers(30, 101, b, dtype=np.int32)
+        sumq_np = rng.integers(0, 4000, b, dtype=np.uint32)
+        for w in (1, W):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            g = se.dedup_groups(words_np[:, :w], lens_np, sumq_np, b, gpu)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            print(f"dedup_groups B={b} W={w}: peak device memory {peak} "
+                  f"bytes, {peak / b:.1f} per row (model "
+                  f"{max(8 * w + 78, 17 * w + 30)}), "
+                  f"{peak / (b * w * 4):.2f} per uint32 key byte; groups "
+                  f"{g['n_groups']}")
+
+
+def set_env(env: dict) -> None:
+    for name, value in env.items():  # None unsets
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
 
 
 def run_pipeline(path: pathlib.Path, prefix: pathlib.Path, device: str,
@@ -153,11 +201,7 @@ def run_pipeline(path: pathlib.Path, prefix: pathlib.Path, device: str,
 
     from ngstpu_torch.tools import pipeline
 
-    for name, value in env.items():  # None unsets
-        if value is None:
-            os.environ.pop(name, None)
-        else:
-            os.environ[name] = value
+    set_env(env)
     t0 = time.monotonic()
     info = pipeline.run(str(path), str(prefix), TRIM[0], TRIM[1],
                         device=device)
@@ -268,7 +312,7 @@ def phase_pipeline(card: str) -> int:
             for suffix in OUTPUTS:
                 a = WORK / f"{route}_{tag}{suffix}"
                 b = WORK / f"{route}_host{suffix}"
-                check(filecmp.cmp(a, b, shallow=False),
+                check(same_file(a, b),
                       f"{route}: {a.name} differs from the host-placement "
                       f"run")
             sorts, hists = counts[route, tag]
@@ -290,8 +334,235 @@ def phase_pipeline(card: str) -> int:
                   f"{info['wall']:.3f}s ({fmt_stages(info['stages'])}) "
                   f"[{card}]")
     print(f"qc_hist launches on the main path: {launches}")
-    shutil.rmtree(WORK, ignore_errors=True)
+    inputs["generic"].unlink()  # the tools phase reads comp.fq
     return launches
+
+
+TIMING_LINE = re.compile(r" at \d+\.\d{3} s$")
+HOST = {"NGSTPU_LINK": "host", "NGSTPU_NO_FASTPATH": None}
+FAST = {"NGSTPU_LINK": "device", "NGSTPU_NO_FASTPATH": None}
+GENERIC = {"NGSTPU_LINK": "device", "NGSTPU_NO_FASTPATH": "1"}
+DEFAULT = {"NGSTPU_LINK": None, "NGSTPU_NO_FASTPATH": None}
+
+
+def run_tool(tool: str, argv: list[str], device: str, env: dict) -> dict:
+    """One tool run through its main(), as the CLI calls it, with the
+    device counters cleared just before and read just after. Returns wall,
+    the stderr lines without timings, the cuda counts and the device's
+    peak memory above what was allocated before."""
+    import importlib
+
+    import torch
+
+    from ngstpu_torch.ops import sortengine, twobit
+    from ngstpu_torch.tools.cli import TOOLS
+
+    mod = importlib.import_module(TOOLS[tool])
+    set_env(env)
+    # the fast routes append their stage walls here (utils/timing.py)
+    stages = WORK / "stages.jsonl"
+    stages.unlink(missing_ok=True)
+    os.environ["NGSTPU_STAGE_JSON"] = str(stages)
+    sortengine.SORTS.clear()
+    sortengine.PACKS.clear()
+    twobit.CODEC.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    err = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stderr(err):
+        rc = mod.main(argv, device=device)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check(rc == 0, f"{tool} {argv} on {device}: exit code {rc}")
+    counts = {"sorts": sortengine.SORTS["cuda"]}
+    for ctr in (sortengine.PACKS, twobit.CODEC):
+        counts.update({op: n for (op, d), n in ctr.items() if d == "cuda"})
+    lines = err.getvalue().splitlines()
+    # the tool's own checkpoints ("... at 1.234 s") and stage walls
+    timing = [ln.strip() for ln in lines if TIMING_LINE.search(ln)]
+    if stages.exists():
+        for rec in map(json.loads, stages.read_text().splitlines()):
+            timing += [f"{k} {v['wall_s']}s" for k, v in rec.items()
+                       if isinstance(v, dict)]
+        stages.unlink()
+    return dict(wall=wall, counts=counts, timing=timing,
+                peak=torch.cuda.max_memory_allocated() - base,
+                err=[ln for ln in lines if not TIMING_LINE.search(ln)])
+
+
+def compare_runs(label: str, tool: str, argv: list[str], outputs: tuple,
+                 runs: list, reads: int, card: str,
+                 compare: bool = True) -> dict:
+    """Run `tool` once per (tag, device, env) in `runs`, the first being
+    the reference. Every later run's output files and stderr lines must
+    equal the reference's (unless not `compare`: timing turns); each run's
+    outputs are removed once compared. Returns {tag: run info}."""
+    slug = label.replace(" ", "_").replace("-", "")
+    res = {}
+    for tag, device, env in runs:
+        prefix = WORK / f"{slug}_{tag}"
+        info = run_tool(tool, [*argv, "-o", str(prefix)], device, env)
+        files = [pathlib.Path(f"{prefix}{suf}") for suf in outputs]
+        if not compare:
+            for f in files:
+                f.unlink()
+        elif res:
+            ref_tag = runs[0][0]
+            check(info["err"] == res[ref_tag]["err"],
+                  f"{label} ({tag}): stderr {info['err']} differs from the "
+                  f"{ref_tag} run's {res[ref_tag]['err']}")
+            for f, suf in zip(files, outputs):
+                check(same_file(f, WORK / f"{slug}_{ref_tag}{suf}"),
+                      f"{label} ({tag}): {f.name} differs from the "
+                      f"{ref_tag} run")
+                f.unlink()
+        info["files"] = files
+        res[tag] = info
+        counts = ", ".join(f"{k} {v}" for k, v in info["counts"].items())
+        uniq = [ln for ln in info["err"] if ln.startswith("unique")]
+        print(f"{label} {tag} ({'device' if device == 'cuda' else 'host'} "
+              f"placement, {device}): wall {info['wall']:.3f}s, "
+              f"{reads / info['wall']:.0f} reads/s; cuda counts: "
+              f"{counts or 'none'}; peak device memory {info['peak']}"
+              f"{'; ' + uniq[0] if uniq else ''} [{card}]")
+        print(f"    stages: {'; '.join(info['timing'])}")
+    for f in res[runs[0][0]]["files"]:
+        f.unlink(missing_ok=True)
+    if compare and len(runs) > 1:
+        print(f"  {label}: {', '.join(outputs) or 'output'} and stderr of "
+              f"{', '.join(t for t, _, _ in runs[1:])} byte-identical to "
+              f"the {runs[0][0]} run")
+    return res
+
+
+def phase_tools(card: str) -> None:
+    """The sort-engine tools and the 2-bit codec, each held against a run
+    of the port on the CPU (every route of ngstpu gives that run's bytes).
+    At 10M reads: gzfastq_uniq and gzfastq_sort -s/-n on the fast route
+    and the generic route with the work on the card, and in the default
+    placement. At 2,097,152 reads (pairs): gzfastq_uniq PE, uniqQ,
+    uniq_sort and ordered_uniq. The codec on the 10M input."""
+    from ngstpu_torch.ops import sortengine
+    from ngstpu_torch.testing.fixtures import (random_fastq_fast,
+                                              random_fastq_pair_fast)
+    from ngstpu_torch.utils import linkprobe
+
+    lim = sortengine.DEVICE_DEDUP_LIMIT
+    print(f"DEVICE_DEDUP_LIMIT = {lim} bytes of uint32 key words "
+          f"({lim / 2 ** 30:.3f} GiB; spills past {lim // 28} rows of 7 "
+          f"words)")
+    t0 = time.monotonic()
+    big = WORK / "big.fq"
+    big.write_bytes(random_fastq_fast(BIG_READS, READ_LEN, seed=77,
+                                      dup_frac=0.3))
+    print(f"input: {BIG_READS} x {READ_LEN} bp, {big.stat().st_size} bytes,"
+          f" made in {time.monotonic() - t0:.2f}s")
+    # the default placement reads the verdict the pipeline phase's probe
+    # measured in this process
+    set_env(DEFAULT)
+    print(f"default placement: link verdict {linkprobe.link_verdict()!r}")
+    check(linkprobe.link_verdict() == "device",
+          "default placement would not use the card")
+
+    big_runs = [("host", "cpu", HOST), ("fast", "cuda", FAST),
+                ("generic", "cuda", GENERIC), ("default", "cuda", DEFAULT)]
+    for tool, argv, outputs in (
+            ("gzfastq_uniq", ["-1", str(big)],
+             ("_uniq.fq", "_sortKeyUniq.fq")),
+            ("gzfastq_sort", ["-i", str(big), "-s"], ("_sort_by_seq.fq",)),
+            ("gzfastq_sort", ["-i", str(big), "-n"], ("_sort_by_name.fq",))):
+        label = tool if tool == "gzfastq_uniq" else f"{tool} {argv[-1]}"
+        res = compare_runs(label, tool, argv, outputs, big_runs, BIG_READS,
+                           card)
+        # timing turns: host, device (above), device, host
+        compare_runs(label, tool, argv, outputs,
+                     [("fast2", "cuda", FAST), ("host2", "cpu", HOST)],
+                     BIG_READS, card, compare=False)
+        for tag in ("fast", "generic", "default"):
+            check(res[tag]["counts"]["sorts"] > 0,
+                  f"{label} ({tag}): no sort ran on the card")
+        if argv[-1] == "-n":
+            check(res["generic"]["counts"].get("bytes_to_words", 0) > 0,
+                  f"{label} (generic): bytes_to_words did not run on the "
+                  f"card")
+        if tool == "gzfastq_uniq":
+            peak = res["generic"]["peak"]
+            print(f"  gzfastq_uniq generic: peak device memory {peak} bytes,"
+                  f" {peak / BIG_READS:.1f} per row (dedup model at W=7: "
+                  f"{17 * 7 + 30})")
+
+    # the 2-bit codec on the card against the numpy codec
+    tb = {}
+    for tag, device, env in (("host", "cpu", {**GENERIC,
+                                              "NGSTPU_LINK": "host"}),
+                             ("cuda", "cuda", GENERIC)):
+        pack = run_tool("fastq2twobit", ["-i", str(big), "-s", "-o",
+                                         str(WORK / f"tb_{tag}")],
+                        device, env)
+        packed = WORK / f"tb_{tag}_sort_by_seq.fq"
+        unpack = run_tool("twoBit2seq", ["-i", str(packed), "-o",
+                                         str(WORK / f"tb_{tag}")],
+                          device, env)
+        tb[tag] = (packed, WORK / f"tb_{tag}.decompress")
+        for what, info in (("fastq2twobit -s", pack),
+                           ("twoBit2seq", unpack)):
+            counts = ", ".join(f"{k} {v}" for k, v in info["counts"].items())
+            print(f"{what} {tag} ({device}): wall {info['wall']:.3f}s, "
+                  f"{BIG_READS / info['wall']:.0f} reads/s; cuda counts: "
+                  f"{counts or 'none'} [{card}]")
+            print(f"    stages: {'; '.join(info['timing'])}")
+        if tag == "cuda":
+            check(pack["counts"].get("pack2bit", 0) == 1,
+                  "fastq2twobit: the device pack did not run")
+            check(unpack["counts"].get("unpack2bit", 0) == 1,
+                  "twoBit2seq: the device unpack did not run")
+    for a, b in zip(*tb.values()):
+        check(same_file(a, b), f"{b.name} differs from the host codec's")
+        a.unlink()
+        b.unlink()
+    print("  2-bit codec: container and decompressed text byte-identical "
+          "to the host codec's")
+    big.unlink()
+
+    # smaller inputs: PE pairs, and the generic-route tools at the
+    # pipeline's size
+    t0 = time.monotonic()
+    pe = [WORK / "pe_1.fq", WORK / "pe_2.fq"]
+    for path, data in zip(pe, random_fastq_pair_fast(N_READS, READ_LEN,
+                                                     seed=78, dup_frac=0.3)):
+        path.write_bytes(data)
+    print(f"input: {N_READS} pairs x {READ_LEN} bp, made in "
+          f"{time.monotonic() - t0:.2f}s")
+    res = compare_runs("gzfastq_uniq PE", "gzfastq_uniq",
+                       ["-1", str(pe[0]), "-2", str(pe[1])],
+                       ("_1_uniq.fq", "_2_uniq.fq"), big_runs[:3], N_READS,
+                       card)
+    for tag in ("fast", "generic"):
+        check(res[tag]["counts"]["sorts"] > 0,
+              f"gzfastq_uniq PE ({tag}): no sort ran on the card")
+    comp = str(WORK / "comp.fq")
+    small_runs = [("host", "cpu", HOST), ("cuda", "cuda", FAST)]
+    for label, tool, argv, outputs in (
+            ("gzfastq_uniqQ -S", "gzfastq_uniqQ", ["-1", comp, "-S"],
+             ("_sortKeyUniq.fq",)),
+            ("gzfastq_uniqQ -C", "gzfastq_uniqQ", ["-1", comp, "-C"],
+             ("_sortKeyUniq.fq",)),
+            ("gzfastq_uniq_sort SE", "gzfastq_uniq_sort", ["-1", comp],
+             ("_1_uniq.fq.gz",)),
+            ("gzfastq_uniq_sort PE", "gzfastq_uniq_sort",
+             ["-1", str(pe[0]), "-2", str(pe[1])],
+             ("_1_uniq.fq.gz", "_2_uniq.fq.gz")),
+            ("ordered_uniq", "ordered_uniq", ["-i", comp], ("",)),
+            ("ordered_uniq -r 20", "ordered_uniq", ["-i", comp, "-r", "20"],
+             ("",))):
+        res = compare_runs(label, tool, argv, outputs, small_runs, N_READS,
+                           card)
+        check(res["cuda"]["counts"]["sorts"] > 0,
+              f"{label}: no sort ran on the card")
+    for path in pe:
+        path.unlink()
 
 
 def main() -> int:
@@ -323,6 +594,8 @@ def main() -> int:
     hist = phase_kernel(rng, card)
     phase_sorts(rng)
     launches = phase_pipeline(card)
+    phase_tools(card)
+    shutil.rmtree(WORK, ignore_errors=True)
 
     kernels = [{"name": "qc_hist", "route": "cuda",
                 "source": "ngstpu_torch/csrc/qc_hist.cu",

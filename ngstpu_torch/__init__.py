@@ -8,9 +8,11 @@ replaces the device half:
 - ``ngstpu_torch.kernels`` hand-written CUDA kernels for sm_90a, built from
                            ``csrc/`` with nvcc on first use, each beside its
                            plain PyTorch version.
-- ``ngstpu_torch.ops``     QC histogram accumulation and the stable
-                           sort/dedup engine on torch tensors.
-- ``ngstpu_torch.tools``   the ``pipeline`` and ``fastq_count`` subcommands
+- ``ngstpu_torch.ops``     QC histogram accumulation, the stable sort/dedup
+                           engine with its key packers, and the 2-bit codec
+                           on torch tensors.
+- ``ngstpu_torch.tools``   ``pipeline``, ``fastq_count``, the sort-engine
+                           tools and the 2-bit codec tools
                            (``python -m ngstpu_torch.tools.cli <tool>``).
 - ``ngstpu_torch.utils``   explicit device selection and the link probe.
 """

@@ -14,7 +14,15 @@ import zlib
 
 TOOLS = {
     "fastq_count": "ngstpu_torch.tools.fastq_count",
+    "gzfastq_uniq": "ngstpu_torch.tools.gzfastq_uniq",
+    "gzfastq_uniqQ": "ngstpu_torch.tools.gzfastq_uniqQ",
+    "gzfastq_uniq_sort": "ngstpu_torch.tools.gzfastq_uniq_sort",
+    "gzfastq_sort": "ngstpu_torch.tools.gzfastq_sort",
+    "gzfastq_sort_list": "ngstpu_torch.tools.gzfastq_sort_list",
+    "fastq2twobit": "ngstpu_torch.tools.fastq2twobit",
+    "twoBit2seq": "ngstpu_torch.tools.twobit2seq",
     "pipeline": "ngstpu_torch.tools.pipeline",
+    "ordered_uniq": "ngstpu_torch.tools.ordered_uniq",
 }
 
 

@@ -22,3 +22,18 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(name)!r} (cuda or cpu)")
     return dev
+
+
+def check_mesh(mesh_n: int, device: torch.device) -> None:
+    """`-m` / NGSTPU_MESH of the sort-engine tools.
+
+    ngstpu shards over min(mesh_n, len(jax.devices())) devices and runs its
+    single-device path when that is 1. The port counts
+    min(mesh_n, torch.cuda.device_count()) on cuda and 1 on cpu; one device
+    takes the single-device path, and more raise, because the sharded
+    dedup and sort (ngstpu/parallel/dsort.py) are not ported yet."""
+    n = min(mesh_n, torch.cuda.device_count()) if device.type == "cuda" else 1
+    if n > 1:
+        raise NotImplementedError(
+            f"-m {mesh_n}: sharding over {n} devices is not ported yet "
+            "(ROADMAP queue 1 item 10, parallel/); run with -m 1")

@@ -10,11 +10,17 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 SLICE = ["ngstpu_torch", "ngstpu_torch.kernels.build",
          "ngstpu_torch.kernels.hist_cuda", "ngstpu_torch.ops.count",
-         "ngstpu_torch.ops.sortengine", "ngstpu_torch.tools.cli",
-         "ngstpu_torch.tools.emitters", "ngstpu_torch.tools.fastq_count",
-         "ngstpu_torch.tools.pipeline",
-         "ngstpu_torch.tools.profile_pipeline", "ngstpu_torch.testing.fixtures",
-         "ngstpu_torch.utils.device", "ngstpu_torch.utils.linkprobe"]
+         "ngstpu_torch.ops.sortengine", "ngstpu_torch.ops.twobit",
+         "ngstpu_torch.tools.cli", "ngstpu_torch.tools.emitters",
+         "ngstpu_torch.tools.fastq_count", "ngstpu_torch.tools.fastq2twobit",
+         "ngstpu_torch.tools.gzfastq_sort",
+         "ngstpu_torch.tools.gzfastq_sort_list",
+         "ngstpu_torch.tools.gzfastq_uniq", "ngstpu_torch.tools.gzfastq_uniqQ",
+         "ngstpu_torch.tools.gzfastq_uniq_sort",
+         "ngstpu_torch.tools.ordered_uniq", "ngstpu_torch.tools.pipeline",
+         "ngstpu_torch.tools.profile_pipeline", "ngstpu_torch.tools.twobit2seq",
+         "ngstpu_torch.testing.fixtures", "ngstpu_torch.utils.device",
+         "ngstpu_torch.utils.linkprobe"]
 
 CHILD = r"""
 import importlib, os, sys
@@ -30,21 +36,45 @@ for mod in sys.argv[2:]:
     importlib.import_module(mod)
 
 from ngstpu.testing.fixtures import random_fastq
-from ngstpu_torch.tools import cli
+from ngstpu_torch.ops import twobit
+from ngstpu_torch.tools import cli, fastq2twobit
 
 d = sys.argv[1]
 open(f"{d}/acgt.fq", "wb").write(random_fastq(200, 60, seed=1, dup_frac=0.3))
 open(f"{d}/n.fq", "wb").write(random_fastq(200, 60, seed=2, with_n=True,
                                             dup_frac=0.3))
+
+
+def run(*argv, out=None):
+    assert cli.main(["--device", "cpu", *argv]) == 0, argv
+    if out:
+        assert os.path.getsize(out) > 0, out
+
+
 for name in ("acgt", "n"):
-    rc = cli.main(["--device", "cpu", "pipeline", "-i", f"{d}/{name}.fq",
-                   "-o", f"{d}/{name}", "-e", "30"])
-    assert rc == 0, rc
-    assert os.path.getsize(f"{d}/{name}_uniq.fq") > 0
-rc = cli.main(["--device", "cpu", "fastq_count", f"{d}/n.fq"])
-assert rc == 0, rc
+    i, o = f"{d}/{name}.fq", f"{d}/{name}"
+    run("pipeline", "-i", i, "-o", o, "-e", "30", out=f"{o}_uniq.fq")
+    run("gzfastq_uniq", "-1", i, "-o", o, out=f"{o}_sortKeyUniq.fq")
+    run("gzfastq_uniq", "-1", i, "-2", i, "-o", o, out=f"{o}_2_uniq.fq")
+    for flag in ("-s", "-n"):
+        run("gzfastq_sort", "-i", i, flag, "-o", o)
+        run("gzfastq_sort_list", "-i", i, flag, "-o", f"{o}.l")
+    run("gzfastq_uniqQ", "-1", i, "-C", "-o", o, out=f"{o}_sortKeyUniq.fq")
+    run("gzfastq_uniq_sort", "-1", i, "-2", i, "-o", o,
+        out=f"{o}_2_uniq.fq.gz")
+    run("ordered_uniq", "-i", i, "-r", "20", "-o", f"{o}.ord", out=f"{o}.ord")
+# the device codec, below its 8 MB floor
+fastq2twobit.DEVICE_MIN_BYTES = 0
+os.environ["NGSTPU_NO_FASTPATH"] = "1"
+run("fastq2twobit", "-i", f"{d}/n.fq", "-s", "-o", f"{d}/tb")
+run("twoBit2seq", "-i", f"{d}/tb_sort_by_seq.fq", "-o", f"{d}/tb",
+    out=f"{d}/tb.decompress")
+assert twobit.CODEC["pack2bit", "cpu"] == twobit.CODEC["unpack2bit", "cpu"] == 1
+run("fastq_count", f"{d}/n.fq")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 assert "jax" not in sys.modules and not loaded, loaded
+assert "ngstpu.utils.linkprobe" not in sys.modules
+assert "ngstpu.tools.gzfastq_uniqQ" not in sys.modules
 print("NOJAX-OK")
 """
 
