@@ -3,8 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ngstpu_torch/csrc, holds it against its
-plain PyTorch version on the card, holds the device sorts against the same
+Needs only ngstpu_torch/ beside it. Builds the port's native host library
+(g++) and its CUDA kernel (nvcc) from the checkout, holds the kernel
+against its plain PyTorch version on the card at seven shapes (the
+generic path's 262,144-row launches at 128 and 640 cycles and with 100 bp
+reads, fastqc's 10M-read lane launch with uniform and NovaSeq-binned
+qualities, and fastqc_stats' full-width launch at 600 cycles with 302 and
+602 length bins), each with its time, bound and share of the bound; holds the device sorts against the same
 functions on CPU tensors, then drives the count+trim+uniq pipeline at the
 composite's real size (2,097,152 reads x 100 bp) on both device routes,
 with the placement forced to the card and with the default placement that
@@ -18,6 +23,7 @@ lane file (10M x 100 bp, Illumina tile names) and PE on 2,097,152 pairs,
 forced to the card and in the default placement, against a host-placement
 run on the CPU (every TSV and PNG); fastq_count_kthread -H -L -t 2 on the
 generic route, cuda against cpu; and each host-only tool once.
+
 Any failed check exits non-zero. The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -40,7 +46,6 @@ import numpy as np
 
 REPO = pathlib.Path(__file__).resolve().parent
 WORK = REPO / ".cache" / "chip_smoke"
-HIST_SHAPES = ((262144, 128), (262144, 640))  # (rows, cycles)
 SORT_ROWS, SORT_WORDS = 1 << 21, 7
 N_READS, READ_LEN, TRIM = 1 << 21, 100, (0, 50)
 OUTPUTS = (".count.tsv", ".trim.fastq", "_uniq.fq", "_sortKeyUniq.fq")
@@ -96,85 +101,115 @@ def same_file(a: pathlib.Path, b: pathlib.Path) -> bool:
                 return True
 
 
-def phase_kernel(rng, card: str) -> dict:
-    """The histogram kernel against its plain version at the generic
-    path's shapes; exact equality (integer counts)."""
+# NovaSeq's binned quality scores ('#' Q2, '-' Q12, '8' Q23, 'F' Q37) and
+# their shares in a typical lane
+BINNED = (b"#-8F", (0.02, 0.05, 0.08, 0.85))
+
+
+def hist_input(kind: str, B: int, L: int, seed: int):
+    """One kernel-phase batch, made on the card from a seed: (qual uint8
+    [B, L], lens int32 [B]). "uniform": qualities 33..74 with 2% wild bytes
+    (some >= 128, never counted) and lengths 0..L; "lane": the same with
+    lengths 0..READ_LEN; "100bp": qualities 33..74, every read READ_LEN
+    long; "binned": NovaSeq's four binned values, every read READ_LEN."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "binned":
+        vals = torch.tensor(list(BINNED[0]), dtype=torch.uint8, device="cuda")
+        cum = torch.tensor(BINNED[1], device="cuda").cumsum(0)[:-1]
+        q = torch.empty((B, L), dtype=torch.uint8, device="cuda")
+        for lo in range(0, B, 1 << 20):
+            hi = min(B, lo + (1 << 20))
+            u = torch.rand((hi - lo, L), device="cuda", generator=g)
+            q[lo:hi] = vals[torch.bucketize(u, cum, right=True)]
+    else:
+        q = torch.randint(33, 75, (B, L), dtype=torch.uint8, device="cuda",
+                          generator=g)
+    if kind in ("uniform", "lane"):
+        wild = torch.rand(q.shape, device="cuda", generator=g) < 0.02
+        q[wild] = torch.randint(0, 256, (int(wild.sum()),), dtype=torch.uint8,
+                                device="cuda", generator=g)
+        del wild
+        top = L if kind == "uniform" else READ_LEN
+        ln = torch.randint(0, top + 1, (B,), dtype=torch.int32, device="cuda",
+                           generator=g)
+    else:
+        ln = torch.full((B,), READ_LEN, dtype=torch.int32, device="cuda")
+    return q, ln
+
+
+# (name, rows, cycles, input kind, n_cycle, n_len, rows not counted): the
+# generic path's QCAccumulator launches (512 cycles, 512 length bins), the
+# composite's 100 bp reads, fastqc's lane launch with uniform and binned
+# qualities, and fastqc_stats' full-width launch at L = 600 with max_len 300
+# and 600 (602 bins: those past the kernel's 512 shared ones go to global
+# atomics)
+HIST_SHAPES = (
+    ("262144x128", 262144, 128, "uniform", 512, 512, 1237),
+    ("262144x640", 262144, 640, "uniform", 512, 512, 1237),
+    ("262144x128 100bp", 262144, 128, "100bp", 512, 512, 0),
+    ("lane 10Mx128", LANE_READS, 128, "lane", 512, 512, 0),
+    ("lane 10Mx128 binned", LANE_READS, 128, "binned", 512, 512, 0),
+    ("fastqc 262144x600", 262144, 600, "uniform", 600, 302, 0),
+    ("fastqc 262144x600 602 bins", 262144, 600, "uniform", 600, 602, 0),
+)
+MAIN_SHAPE = "262144x128 100bp"  # what the pipeline's generic route launches
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+
+
+def phase_kernel(card: str) -> dict:
+    """The histogram kernel against its plain version at every shape of
+    HIST_SHAPES: exact equality (integer counts). Each line gives the
+    kernel's time (L2 cold), its bound (bound_bytes over the card's memory
+    rate), the share of the bound and the plain version's time."""
     import torch
 
     from ngstpu_torch.kernels import hist_cuda
 
     out = {}
-    for B, L in HIST_SHAPES:
-        n_valid = B - 1237
-        qual = rng.integers(33, 75, (B, L), dtype=np.uint8)
-        # a few wild bytes, some >= 128, which must never be counted
-        wild = rng.random((B, L), dtype=np.float32) < 0.02
-        qual[wild] = rng.integers(0, 256, int(wild.sum()), dtype=np.uint8)
-        lens = rng.integers(0, L + 1, B, dtype=np.int32)
-        q = torch.from_numpy(qual).cuda()
-        ln = torch.from_numpy(lens).cuda()
-        tq = torch.zeros((512, 128), dtype=torch.int32, device="cuda")
-        tl = torch.zeros(512, dtype=torch.int32, device="cuda")
-        hist_cuda.qc_hist_accumulate_(tq, tl, q, ln, n_valid)
+    for name, B, L, kind, n_cycle, n_len, short in HIST_SHAPES:
+        n = B - short
+        q, ln = hist_input(kind, B, L, seed=len(out) + 2025)
+        tq = torch.zeros((n_cycle, 128), dtype=torch.int32, device="cuda")
+        tl = torch.zeros(n_len, dtype=torch.int32, device="cuda")
+        hist_cuda.qc_hist_accumulate_(tq, tl, q, ln, n)
         torch.cuda.synchronize()
-        pq, pl = hist_cuda.qc_hist_plain(q, ln, n_valid)
+        pq, pl = hist_cuda.qc_hist_plain(q, ln, n, n_cycle, n_len)
         err = max(int((tq - pq).abs().max()), int((tl - pl).abs().max()))
-        check(err == 0, f"qc_hist kernel != plain at B={B} L={L}: "
-                        f"max abs err {err}")
-        check(int(tl.sum()) == n_valid, "length histogram lost rows")
-        # time over 3 copies of the batch in turn (>= 100 MB), so the
-        # 50 MB L2 does not hold the batch from one launch to the next
-        qs = [q, q.clone(), q.clone()]
+        check(err == 0, f"qc_hist kernel != plain at {name}: max abs err "
+                        f"{err}")
+        check(int(tl.sum()) == n, f"{name}: the length histogram lost rows")
+        del pq, pl
+        torch.cuda.empty_cache()
+        bound = hist_cuda.bound_bytes(ln, n, L, n_cycle) \
+            / HBM_BYTES_PER_S * 1e3
+        # rotate over copies of the batch (>= 100 MB in all) so the 50 MB
+        # L2 does not hold it from one launch to the next
+        copies = -(-(100 << 20) // q.numel())
+        qs = [q] + [q.clone() for _ in range(copies - 1)]
         turn = itertools.count()
-        ms = cuda_ms(lambda: hist_cuda.qc_hist_accumulate_(
-            tq, tl, qs[next(turn) % 3], ln, n_valid), 60)
+        big = B * L > (1 << 30)
+
+        def kernel():
+            hist_cuda.qc_hist_accumulate_(tq, tl, qs[next(turn) % len(qs)],
+                                          ln, n)
+
+        ms = cuda_ms(kernel, 10 if big else 60)
         plain_ms = cuda_ms(lambda: hist_cuda.qc_hist_plain(
-            qs[next(turn) % 3], ln, n_valid), 12)
-        gbs = B * L / (ms * 1e-3) / 1e9
-        print(f"qc_hist B={B} L={L} n_valid={n_valid}: kernel == plain "
-              f"(max_abs_err 0); kernel {ms:.4f} ms ({gbs:.1f} GB/s of "
-              f"qual), plain {plain_ms:.4f} ms [{card}]")
-        out[L] = dict(ms=ms, plain_ms=plain_ms, err=err)
-        del q, qs, ln, pq, pl
-    out["fastqc"] = lane_hist_check(card)
+            qs[next(turn) % len(qs)], ln, n, n_cycle, n_len), 2 if big else 12)
+        res = dict(B=B, L=L, n_cycle=n_cycle, n_len=n_len, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, share=bound / ms,
+                   err=err)
+        line = (f"qc_hist {name} (B={B} L={L} n_valid={n} n_cycle={n_cycle} "
+                f"n_len={n_len}): kernel == plain (max_abs_err 0); kernel "
+                f"{ms:.4f} ms, bound {bound:.4f} ms, share of bound "
+                f"{bound / ms:.3f}, plain {plain_ms:.4f} ms")
+        print(f"{line} [{card}]")
+        out[name] = res
+        del q, qs, ln, tq, tl
+        torch.cuda.empty_cache()
     return out
-
-
-def lane_hist_check(card: str) -> dict:
-    """The kernel against its plain version at the shape fastqc's one
-    launch has on the lane file: [10M, 128] (the reader pads rows to 128
-    bytes), every row valid, lengths up to READ_LEN. Made on the card from
-    a seed; exact equality."""
-    import torch
-
-    from ngstpu_torch.kernels import hist_cuda
-
-    g = torch.Generator(device="cuda").manual_seed(2025)
-    q = torch.randint(33, 75, (LANE_READS, 128), dtype=torch.uint8,
-                      device="cuda", generator=g)
-    wild = torch.rand(q.shape, device="cuda", generator=g) < 0.02
-    q[wild] = torch.randint(0, 256, (int(wild.sum()),), dtype=torch.uint8,
-                            device="cuda", generator=g)
-    del wild
-    ln = torch.randint(0, READ_LEN + 1, (LANE_READS,), dtype=torch.int32,
-                       device="cuda", generator=g)
-    tq = torch.zeros((512, 128), dtype=torch.int32, device="cuda")
-    tl = torch.zeros(512, dtype=torch.int32, device="cuda")
-    hist_cuda.qc_hist_accumulate_(tq, tl, q, ln, LANE_READS)
-    pq, pl = hist_cuda.qc_hist_plain(q, ln, LANE_READS)
-    err = max(int((tq - pq).abs().max()), int((tl - pl).abs().max()))
-    check(err == 0, f"qc_hist kernel != plain at fastqc's lane shape "
-                    f"[{LANE_READS}, 128]: max abs err {err}")
-    del pq, pl
-    ms = cuda_ms(lambda: hist_cuda.qc_hist_accumulate_(tq, tl, q, ln,
-                                                       LANE_READS), 5)
-    plain_ms = cuda_ms(lambda: hist_cuda.qc_hist_plain(q, ln, LANE_READS), 2)
-    print(f"qc_hist B={LANE_READS} L=128 lens<={READ_LEN} (fastqc's lane "
-          f"launch): kernel == plain (max_abs_err 0); kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms [{card}]")
-    del q, ln
-    torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain_ms, err=err)
 
 
 def phase_sorts(rng) -> None:
@@ -289,14 +324,13 @@ def phase_pipeline(card: str) -> int:
         return run_pipeline(inputs[route], WORK / f"{route}_{tag}", device,
                             env[device][route])
 
-    # warm-up at a small size: builds the native host library and loads
-    # the device sort's kernels, so the timed runs below start warm
+    # warm-up at a small size: loads the device sort's kernels, so the
+    # timed runs below start warm
     small = WORK / "small.fq"
     small.write_bytes(random_fastq_fast(1 << 14, READ_LEN, seed=7))
     t0 = time.monotonic()
     run_pipeline(small, WORK / "small", "cuda", env["cuda"]["fast"])
-    print(f"warm-up pipeline run (native host library build included): "
-          f"{time.monotonic() - t0:.2f}s")
+    print(f"warm-up pipeline run: {time.monotonic() - t0:.2f}s")
     for p in WORK.glob("small*"):
         p.unlink()
 
@@ -806,10 +840,14 @@ def phase_host_tools() -> None:
     shutil.rmtree(d)
 
 
-def main() -> int:
-    if not (REPO / "ngstpu_torch").is_dir() or not (REPO / "ngstpu").is_dir():
-        fail("run from a checkout of the repository: ngstpu_torch/ and "
-             "ngstpu/ must sit beside chip_smoke.py")
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.parse_args(argv)
+    if not (REPO / "ngstpu_torch").is_dir():
+        fail("run from a checkout of the repository: ngstpu_torch/ must sit "
+             "beside chip_smoke.py")
     sys.path.insert(0, str(REPO))
     import torch
 
@@ -820,8 +858,14 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}")
+    from ngstpu_torch.io import native
     from ngstpu_torch.kernels import build
 
+    t0 = time.monotonic()
+    check(native.get_lib() is not None, "the native host library did not "
+                                        "build or load")
+    print(f"native library build: libngsio_torch {native.BUILD_SECONDS:.2f}s "
+          f"(load {time.monotonic() - t0:.2f}s)")
     t0 = time.monotonic()
     build.load("qc_hist")
     log = build.BUILD_LOG["qc_hist"]
@@ -831,23 +875,29 @@ def main() -> int:
         if "ptxas info" in line:
             print(f"  {line.strip()}")
 
-    rng = np.random.default_rng(2024)
-    hist = phase_kernel(rng, card)
-    phase_sorts(rng)
-    paths = {"pipeline generic": phase_pipeline(card)}
+    hist = phase_kernel(card)
+    paths = {}
+    phase_sorts(np.random.default_rng(2024))
+    paths["pipeline generic"] = phase_pipeline(card)
     phase_tools(card)
     paths["fastqc"] = phase_fastqc(card)
     paths["fastq_count_kthread"] = phase_kthread(card)
     phase_host_tools()
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"qc_hist launches by path: {paths}")
+    check(all(paths.values()), f"a path never launched qc_hist: {paths}")
 
+    main_shape = hist[MAIN_SHAPE]
     kernels = [{"name": "qc_hist", "route": "cuda",
                 "source": "ngstpu_torch/csrc/qc_hist.cu",
                 "replaces": "ngstpu/kernels/hist_pallas.py:27",
                 "launches": sum(paths.values()), "paths": paths,
                 "max_abs_err": max(h["err"] for h in hist.values()),
-                "ms": hist[128]["ms"], "plain_ms": hist[128]["plain_ms"]}]
+                "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+                "bound_ms": main_shape["bound_ms"], "bound_by": "bytes",
+                "library_ms": None, "share": main_shape["share"],
+                "shape": MAIN_SHAPE,
+                "shapes": hist}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,7 @@ Q30_ASCII = 63
 
 def qc_histograms(qual: torch.Tensor, lens: torch.Tensor, n_valid: int,
                   n_qual: int = N_QUAL, n_len: int = N_CYCLE):
-    """Per-batch QC histograms, plain torch (ngstpu.ops.count.qc_histograms).
+    """Per-batch QC histograms, plain torch (ngstpu/ops/count.py:qc_histograms).
 
     qual: uint8 [B, L]; lens: int32 [B]; n_valid: rows that count.
     Returns (cycle_hist int32 [L, n_qual], len_hist int32 [n_len]): the
@@ -88,7 +88,7 @@ class QCAccumulator:
 
     def _add_host(self, qual: np.ndarray, lens: np.ndarray,
                   n_valid: int) -> bool:
-        from ngstpu.io.native import get_lib
+        from ..io.native import get_lib
 
         lib = get_lib()
         if lib is None:

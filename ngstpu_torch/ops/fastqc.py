@@ -5,11 +5,10 @@ Mirrors ngstpu/ops/fastqc.py, whose module imports jax, so the host helpers
 are numpy copies here. The device functions take tensors on one device and
 return tensors on it:
 
-- fastqc_stats: the quality matrix and the length histogram come from one
-  launch of the QC histogram kernel (kernels/hist_cuda.py) into fresh
-  totals, or from its plain version for CPU tensors. The kernel counts the
-  first 512 cycles, so `quality` is [min(L, 512), 128]; the tool reads only
-  cycles < MAX_LEN.
+- fastqc_stats: the quality matrix [L, 128] and the length histogram come
+  from one launch of the QC histogram kernel (kernels/hist_cuda.py) into
+  fresh totals of L cycles and max_len + 2 length bins, or from its plain
+  version for CPU tensors.
 - adapter_content, per_tile_quality, kmer_position_counts: torch ops.
 
 Every count is an integer, and the rows are taken in chunks of _ROWS, so
@@ -25,7 +24,7 @@ import collections
 import numpy as np
 import torch
 
-from ..kernels.hist_cuda import N_CYCLE, N_QUAL, qc_hist_accumulate_
+from ..kernels.hist_cuda import N_QUAL, qc_hist_accumulate_
 
 MAX_LEN = 300  # reference Rgzfastq_uniq.c:26
 KMER_K = 7  # FastQC Kmer module word size
@@ -58,19 +57,20 @@ def _n_rows(n_valid: int, B: int) -> int:
 def fastqc_stats(seq: torch.Tensor, qual: torch.Tensor, lens: torch.Tensor,
                  n_valid: int, max_len: int = MAX_LEN) -> dict:
     """seq/qual uint8 [B, L], lens int32 [B], on one device. Returns dict:
-    quality int32 [min(L, 512), 128] (cycle-major; quality bytes >= 128
-    are not counted), ntval int32 [L, 5] (rows T/C/A/G/N as codes 0-4),
-    gc_frac float32 [B], len_hist int32 [max_len] (bin i == length i+1),
-    over rows < n_valid and cycles < lens[row]."""
-    if not 0 < max_len < N_CYCLE:
-        raise ValueError(f"max_len must be in 1..{N_CYCLE - 1}, got {max_len}")
+    quality int32 [L, 128] (cycle-major; quality bytes >= 128 are not
+    counted), ntval int32 [L, 5] (rows T/C/A/G/N as codes 0-4), gc_frac
+    float32 [B], len_hist int32 [max_len] (bin i == length i+1), over rows
+    < n_valid and cycles < lens[row]."""
+    if max_len < 0:
+        raise ValueError(f"max_len must be >= 0, got {max_len}")
     B, L = seq.shape
     dev = seq.device
     n = _n_rows(n_valid, B)
-    total_q = torch.zeros((N_CYCLE, N_QUAL), dtype=torch.int32, device=dev)
-    total_len = torch.zeros(N_CYCLE, dtype=torch.int32, device=dev)
+    total_q = torch.zeros((max(L, 1), N_QUAL), dtype=torch.int32, device=dev)
+    # lengths clip to bin max_len + 1, so bins 1..max_len count exactly
+    # the lengths 1..max_len
+    total_len = torch.zeros(max_len + 2, dtype=torch.int32, device=dev)
     qc_hist_accumulate_(total_q, total_len, qual, lens, n)
-    # lengths 1..max_len never reach the kernel's clip bin 511
     len_hist = total_len[1:max_len + 1]
 
     col = torch.arange(L, device=dev, dtype=torch.int64)
@@ -96,7 +96,7 @@ def fastqc_stats(seq: torch.Tensor, qual: torch.Tensor, lens: torch.Tensor,
         gc_frac[lo:hi] = is_gc.sum(dim=1).to(torch.float32) / \
             ln.clamp(min=1).to(torch.float32)
     FASTQC["fastqc_stats", dev.type] += 1
-    return dict(quality=total_q[:min(L, N_CYCLE)],
+    return dict(quality=total_q[:L],
                 ntval=ntval[:L * 5].view(L, 5).to(torch.int32),
                 gc_frac=gc_frac, len_hist=len_hist)
 
@@ -193,15 +193,15 @@ def kmer_position_counts(seq: torch.Tensor, lens: torch.Tensor, n_valid: int,
     return flat[:L * n_kmers].view(L, n_kmers).to(torch.int32)
 
 
-# --- host placement and report helpers: numpy copies of ngstpu.ops.fastqc
+# --- host placement and report helpers: numpy copies of ngstpu/ops/fastqc.py
 
 
 def fastqc_stats_host(seq: np.ndarray, qual: np.ndarray, lens: np.ndarray,
                       n: int, n_qual: int = 128, max_len: int = MAX_LEN):
-    """Host placement of fastqc_stats (ngstpu.ops.fastqc.fastqc_stats_host):
+    """Host placement of fastqc_stats (ngstpu/ops/fastqc.py:fastqc_stats_host):
     the native threaded per-cycle histogram and chunked numpy. quality is
     [L, n_qual] for any L."""
-    from ngstpu.io.native import get_lib
+    from ..io.native import get_lib
 
     B, L = seq.shape
     lens32 = np.ascontiguousarray(lens[:n], np.int32)
@@ -353,11 +353,9 @@ def dedup_groups_host_native(key: np.ndarray, key_lens: np.ndarray):
     library is there, else the numpy lexsort spill engine over raw-byte
     words (the port's sortengine._dedup_host). Both return (counts, rep)
     in key-ascending group order, as the device dedup_groups does."""
-    from ngstpu.io.native import get_lib
-    from ngstpu.ops.hostsort import (bytes_to_words_host, classify_alphabet,
-                                     pack_words_host)
-
-    from .sortengine import _dedup_host
+    from ..io.native import get_lib
+    from .hostsort import bytes_to_words_host, classify_alphabet
+    from .sortengine import _dedup_host, pack_words
 
     B = len(key_lens)
     if B == 0:
@@ -376,7 +374,7 @@ def dedup_groups_host_native(key: np.ndarray, key_lens: np.ndarray):
     import ctypes
 
     kind = classify_alphabet(key)
-    words = np.ascontiguousarray(pack_words_host(key, kind))
+    words = np.ascontiguousarray(pack_words(key, kind, torch.device("cpu")))
     use_len = 0 if kind == "dna3" else 1
     perm = np.empty(B, np.int32)
     rep = np.empty(B, np.int64)

@@ -1,7 +1,7 @@
 """Device sort/dedup engine on torch tensors.
 
 Mirrors the device half of ngstpu/ops/sortengine.py: rows are packed into
-collation-preserving uint32 words (on the host by ngstpu.ops.hostsort's
+collation-preserving uint32 words (on the host by ops/hostsort.py's
 native packers, or on the device by bytes_to_words / dna2_words /
 dna3_words), and a stable LSD chain of one-key sorts gives the
 lexicographic order; duplicate groups are equal-neighbour runs of the
@@ -23,8 +23,8 @@ import os
 import numpy as np
 import torch
 
-from ngstpu.ops.hostsort import (_pack_host, bytes_to_words_host,
-                                 classify_alphabet, is_dna3_compatible)
+from .hostsort import (_pack_host, bytes_to_words_host, classify_alphabet,
+                       is_dna3_compatible)
 
 # sorts run per device type by lex_argsort / sort_partition / dedup_sorted,
 # and device packs per (packer, device type): chip_smoke.py reads both to
@@ -87,7 +87,7 @@ def pack_words(padded_np: np.ndarray, kind: str,
                device: torch.device) -> np.ndarray:
     """Collation-preserving uint32 sort words for `kind`, on the host.
 
-    ngstpu.ops.hostsort.pack_words_host without its jax fallback: the
+    ngstpu's hostsort.pack_words_host without its jax fallback: the
     native threaded packer, or the device packers on `device` when the
     native library is missing."""
     if kind in ("dna2", "dna3"):
@@ -236,7 +236,7 @@ def rep_counts_host(perm: np.ndarray, is_head: np.ndarray, n_valid: int,
                     sumq: np.ndarray):
     """Group sizes + representative rows from a stable key-only sort.
 
-    A numpy copy of ngstpu.ops.sortengine.rep_counts_host, whose module
+    A numpy copy of ngstpu's sortengine.rep_counts_host, whose module
     imports jax. perm/is_head: from sort_partition, trimmed to valid rows;
     sumq: per-row quality sums (partition-local indexing, same as perm).
     Returns (rep_local [G], counts [G]) with groups in key order; rep is
@@ -282,7 +282,7 @@ def _dedup_host(words_np: np.ndarray, lens_np: np.ndarray,
                 sumq_np: np.ndarray, n_valid: int, length_first: bool):
     """Host spill path: numpy lexsort with the device path's key order.
 
-    A numpy copy of ngstpu.ops.sortengine._dedup_host, whose module imports
+    A numpy copy of ngstpu's sortengine._dedup_host, whose module imports
     jax. The full key set is used; the device chain only skips keys that
     cannot change the order."""
     # np.lexsort: LAST key is primary. Significance (most->least):

@@ -3,8 +3,8 @@
 Semantics of the reference twoBit.h codec: T/t/U/u -> 0, C/c -> 1,
 A/a -> 2, G/g -> 3, anything else (N included) -> 0, so N packs lossily to
 T; four bases per byte, first base in the two most significant bits.
-Unpack maps 0..3 to "TCAG". The tables and the numpy codec come from the
-jax-free ngstpu.ops.twobit_host, which the tools use on the host placement.
+Unpack maps 0..3 to "TCAG". The tables and the numpy codec are in ops/twobit_host.py (a copy of
+ngstpu's), which the tools use on the host placement.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import collections
 
 import torch
 
-from ngstpu.ops.twobit_host import VAL_TO_NT
+from .twobit_host import VAL_TO_NT
 
 # device packs and unpacks per (op, device type): chip_smoke.py reads it to
 # show that the card did the work

@@ -1,12 +1,70 @@
-"""Seeded FASTQ inputs for the port's end-to-end checks."""
+"""Seeded FASTQ inputs for the port's tests and end-to-end checks.
+
+BASES, random_fastq, random_fastq_pair and gz are copies of ngstpu's
+testing/fixtures.py (the same draws give the same bytes); the rest build
+large inputs as one byte matrix.
+"""
 
 from __future__ import annotations
 
+import gzip
+import io
+
 import numpy as np
 
-from ngstpu.testing.fixtures import BASES
-
 from ..ops.fastqc import ADAPTER_BYTES
+
+BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+BASES_N = np.frombuffer(b"ACGTN", dtype=np.uint8)
+
+
+def random_fastq(n_reads: int, read_len: int = 100, seed: int = 0,
+                 var_len: bool = False, min_len: int = 30,
+                 with_n: bool = False, name_prefix: str = "read",
+                 with_comment: bool = False, dup_frac: float = 0.0,
+                 qual_lo: int = 33, qual_hi: int = 74,
+                 qual_alphabet: bytes | None = None) -> bytes:
+    """Generate FASTQ text. dup_frac makes that fraction of reads copies of
+    earlier reads (for dedup tests)."""
+    rng = np.random.default_rng(seed)
+    lens = (rng.integers(min_len, read_len + 1, n_reads) if var_len
+            else np.full(n_reads, read_len, dtype=np.int64))
+    alphabet = BASES_N if with_n else BASES
+    out = io.BytesIO()
+    seqs: list[bytes] = []
+    for i in range(n_reads):
+        li = int(lens[i])
+        if dup_frac > 0 and i > 0 and rng.random() < dup_frac:
+            j = int(rng.integers(0, len(seqs)))
+            seq = seqs[j]
+            li = len(seq)
+        else:
+            seq = alphabet[rng.integers(0, len(alphabet), li)].tobytes()
+        seqs.append(seq)
+        if qual_alphabet is not None:
+            qa = np.frombuffer(qual_alphabet, dtype=np.uint8)
+            qual = qa[rng.integers(0, len(qa), li)].tobytes()
+        else:
+            qual = rng.integers(qual_lo, qual_hi + 1, li, dtype=np.uint8).tobytes()
+        name = f"@{name_prefix}_{i}"
+        if with_comment:
+            name += f" comment/{i % 2 + 1}"
+        out.write(name.encode() + b"\n" + seq + b"\n+\n" + qual + b"\n")
+    return out.getvalue()
+
+
+def random_fastq_pair(n_reads: int, read_len: int = 100, seed: int = 0,
+                      **kw) -> tuple[bytes, bytes]:
+    r1 = random_fastq(n_reads, read_len, seed, name_prefix="pair", **kw)
+    r2 = random_fastq(n_reads, read_len, seed + 1, name_prefix="pair", **kw)
+    return r1, r2
+
+
+def gz(data: bytes) -> bytes:
+    buf = io.BytesIO()
+    with gzip.GzipFile(fileobj=buf, mode="wb", mtime=0) as f:
+        f.write(data)
+    return buf.getvalue()
 
 
 def name_matrix(n: int, fields) -> np.ndarray:
@@ -68,7 +126,7 @@ def fastq_text(prefix: bytes, seqs: np.ndarray, quals: np.ndarray) -> bytes:
 def random_fastq_fast(n_reads: int, read_len: int = 100, seed: int = 0,
                       name_prefix: str = "read",
                       dup_frac: float = 0.0) -> bytes:
-    """ngstpu.testing.fixtures.random_fastq_fast, byte for byte (the same
+    """ngstpu/testing/fixtures.py:random_fastq_fast, byte for byte (the same
     draws from the same generator), built by fastq_text."""
     rng = np.random.default_rng(seed)
     seqs = BASES[rng.integers(0, 4, (n_reads, read_len))]

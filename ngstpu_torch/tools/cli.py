@@ -4,8 +4,8 @@
 
 DEV defaults to ``cuda``; without a CUDA device the run fails rather than
 falling back to the CPU. ``--device cpu`` runs the plain PyTorch versions.
-The tools of HOST_ONLY have no device code: they are ngstpu's own jax-free
-modules, called without a device.
+The tools of HOST_ONLY have no device code: they are copies of ngstpu's
+host tools, called without a device.
 """
 
 from __future__ import annotations
@@ -17,15 +17,15 @@ import zlib
 TOOLS = {
     "fastq_count": "ngstpu_torch.tools.fastq_count",
     "fastq_count_kthread": "ngstpu_torch.tools.fastq_count_kthread",
-    "fastq_trim": "ngstpu.tools.fastq_trim",
-    "pick_pair": "ngstpu.tools.pick_pair",
-    "gzfastq_sample": "ngstpu.tools.gzfastq_sample",
+    "fastq_trim": "ngstpu_torch.tools.fastq_trim",
+    "pick_pair": "ngstpu_torch.tools.pick_pair",
+    "gzfastq_sample": "ngstpu_torch.tools.gzfastq_sample",
     "gzfastq_uniq": "ngstpu_torch.tools.gzfastq_uniq",
     "gzfastq_uniqQ": "ngstpu_torch.tools.gzfastq_uniqQ",
     "gzfastq_uniq_sort": "ngstpu_torch.tools.gzfastq_uniq_sort",
     "gzfastq_sort": "ngstpu_torch.tools.gzfastq_sort",
     "gzfastq_sort_list": "ngstpu_torch.tools.gzfastq_sort_list",
-    "gzfastq_mrle": "ngstpu.tools.gzfastq_mrle",
+    "gzfastq_mrle": "ngstpu_torch.tools.gzfastq_mrle",
     "fastq2twobit": "ngstpu_torch.tools.fastq2twobit",
     "twoBit2seq": "ngstpu_torch.tools.twobit2seq",
     "fastqc": "ngstpu_torch.tools.fastqc",

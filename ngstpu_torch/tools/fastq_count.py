@@ -17,8 +17,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ngstpu.io.fastq import FastqChunkReader
-from ngstpu.utils.timing import StageTimer
+from ..io.fastq import FastqChunkReader
+from ..utils.timing import StageTimer
 
 from ..ops.count import QCAccumulator
 from ..utils.device import resolve_device
@@ -26,8 +26,8 @@ from ..utils.device import resolve_device
 
 def count_file(path: str, device: str | torch.device) -> QCAccumulator:
     if not os.environ.get("NGSTPU_NO_FASTPATH"):
-        from ngstpu.io.fastindex import fused_stats, index_fastq
-        from ngstpu.utils.bufpool import get_buffer, get_matrix
+        from ..io.fastindex import fused_stats, index_fastq
+        from ..utils.bufpool import get_buffer, get_matrix
 
         ix = index_fastq(path)
         if ix is not None:

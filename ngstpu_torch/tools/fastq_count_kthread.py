@@ -21,7 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ngstpu.utils.timing import StageTimer
+from ..utils.timing import StageTimer
 
 from ..ops.count import QCAccumulator
 from ..utils.device import resolve_device

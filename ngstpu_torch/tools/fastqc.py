@@ -24,10 +24,10 @@ import sys
 import numpy as np
 import torch
 
-from ngstpu.io.fastq import read_fastq_file
-from ngstpu.io.native import concat_pairs
-from ngstpu.utils.png import Canvas, write_png
-from ngstpu.utils.timing import StageRusage, StageTimer
+from ..io.fastq import read_fastq_file
+from ..io.native import concat_pairs
+from ..utils.png import Canvas, write_png
+from ..utils.timing import StageRusage, StageTimer
 
 from ..ops.fastqc import (ADAPTER_BYTES, ADAPTERS, KMER_K, MAX_LEN,
                           adapter_content, adapter_content_host,

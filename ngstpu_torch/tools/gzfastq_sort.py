@@ -26,17 +26,37 @@ import sys
 import numpy as np
 import torch
 
-from ngstpu.io.fastq import read_fastq_file
-from ngstpu.io.stream import open_output, with_suffix
-from ngstpu.ops.hostsort import (bytes_to_words_host, seq_words_host,
-                                 sort_perm_host)
-from ngstpu.tools.gzfastq_sort import _stream_sorted_emit, emit_permuted
-from ngstpu.utils.timing import StageRusage, StageTimer
-
-from ..ops.sortengine import bytes_to_words, lex_argsort, seq_words, \
-    words_tensor
+from ..io.fastq import format_fastq, read_fastq_file
+from ..io.stream import open_output, with_suffix
+from ..ops.hostsort import (bytes_to_words_host, is_dna3_compatible,
+                            sort_perm_host)
+from ..ops.sortengine import bytes_to_words, lex_argsort, pack_words, \
+    seq_words, words_tensor
 from ..utils.device import check_mesh, resolve_device
 from ..utils.linkprobe import link_verdict, probe_link
+from ..utils.timing import StageRusage, StageTimer
+from .emitters import _fresh, _RecyclingSink, _RingWriter
+
+OUT_CHUNK = 1 << 20
+
+
+def emit_permuted(out, batch, perm: np.ndarray) -> None:
+    """Write records of `batch` in `perm` order (fused native gather+format,
+    chunked fallback)."""
+    from ..io.native import format_fastq_take
+
+    if len(perm):
+        text = format_fastq_take(batch.names, batch.name_starts,
+                                 batch.name_lens, perm, None,
+                                 batch.seq, batch.lens, perm,
+                                 batch.qual, batch.lens, perm)
+        if text is not None:
+            out.write(text)
+            return
+    for lo in range(0, len(perm), OUT_CHUNK):
+        sub = batch.take(perm[lo:lo + OUT_CHUNK])
+        out.write(format_fastq(sub.names, sub.name_starts, sub.name_lens,
+                               sub.seq, sub.qual, sub.lens))
 
 
 def _run_sort_fast(infile: str, outfile: str, by_name: bool,
@@ -47,10 +67,9 @@ def _run_sort_fast(infile: str, outfile: str, by_name: bool,
     records emitted from the raw bytes in permuted order with a ring writer
     overlapping format and file writes. Returns False when the fast path
     does not apply."""
-    from ngstpu.io.fastindex import index_fastq, take_text
-    from ngstpu.io.native import get_lib
-    from ngstpu.tools.emitters import _fresh, _RecyclingSink, _RingWriter
-    from ngstpu.utils.bufpool import get_buffer, get_matrix
+    from ..io.fastindex import index_fastq, take_text
+    from ..io.native import get_lib
+    from ..utils.bufpool import get_buffer, get_matrix
 
     if (not outfile or outfile.startswith("-")
             or os.environ.get("NGSTPU_NO_FASTPATH")):
@@ -128,6 +147,79 @@ def _run_sort_fast(infile: str, outfile: str, by_name: bool,
     return True
 
 
+def _stream_sorted_emit(ix, words: np.ndarray, outfile: str, by_name: bool,
+                        timer: StageTimer, ru) -> None:
+    """Constant-length host sort with the radix streamed under the emit:
+    ngs_msd_scatter_u32 builds the stable 256-bucket permutation, a
+    sorter thread radixes buckets in ascending (== output) order
+    (ngs_sort_perm_range, GIL released), and the main thread formats +
+    submits each completed bucket range to the ring writer. Order is
+    identical to sort_perm_host(words, lens, length_first) on equal
+    lengths — covered by the byte-parity oracle tests."""
+    import ctypes
+    import queue
+    import threading
+
+    from ..io.fastindex import take_text
+    from ..io.native import get_lib
+    from ..utils.bufpool import get_buffer
+
+    lib = get_lib()
+    B, W = words.shape
+    perm = get_buffer("sort.perm", 4 * B, np.int32)[:B]
+    boff = np.zeros(257, np.int64)
+    lib.ngs_msd_scatter_u32(words, B, W, perm, boff)
+    done_q: "queue.Queue[int]" = queue.Queue()
+    box: list = []
+
+    def sorter():
+        try:
+            for k in range(256):
+                if boff[k + 1] > boff[k]:
+                    lib.ngs_sort_perm_range(words, W, perm,
+                                            int(boff[k]), int(boff[k + 1]))
+                done_q.put(k)
+        except BaseException as e:  # pragma: no cover - surfaced below
+            box.append(e)
+            done_q.put(-1)
+
+    t = threading.Thread(target=sorter, daemon=True)
+    t.start()
+    timer.log("done qsort file at %.3f s\n")
+    ru.checkpoint("pack_sort")
+    suffix = "_sort_by_name.fq" if by_name else "_sort_by_seq.fq"
+    with open(_fresh(with_suffix(outfile, suffix)), "wb",
+              buffering=0) as f:
+        w = _RingWriter(_RecyclingSink(f), ["sort.emitA", "sort.emitB"])
+        try:
+            emitted = 0   # buckets formatted
+            ready = -1    # highest contiguous sorted bucket
+            # group small buckets: submit once >= this many rows ready
+            MIN_ROWS = 1 << 18
+            pend_lo = 0
+            while emitted < 256:
+                k = done_q.get()
+                if k < 0:
+                    raise box[0]
+                ready = k
+                lo, hi = pend_lo, int(boff[ready + 1])
+                if hi - lo >= MIN_ROWS or ready == 255:
+                    for clo in range(lo, hi, 1 << 19):
+                        chi = min(clo + (1 << 19), hi)
+                        name = w.acquire()
+                        view, total = take_text(
+                            ix, perm[clo:chi].astype(np.int64), name)
+                        w.submit(name, view, total)
+                    pend_lo = hi
+                emitted = ready + 1
+        finally:
+            w.close()
+    t.join()
+    timer.log("done write file at %.3f s\n")
+    ru.checkpoint("emit_write")
+    ru.dump(tool="gzfastq_sort", reads=B, placement="host")
+
+
 def _link_placement(operand: np.ndarray) -> str | None:
     """Transfer-aware placement for the whole-file sort: a known verdict
     applies at any size; an unknown link only probes for operands big
@@ -147,7 +239,9 @@ def sort_perm_by_seq(batch, device: torch.device,
     if mesh_n > 1:
         check_mesh(mesh_n, device)  # ngstpu's _mesh_perm
     if _link_placement(batch.seq) == "host":
-        perm = sort_perm_host(seq_words_host(batch.seq), batch.lens, True)
+        kind = "dna3" if is_dna3_compatible(batch.seq, None) else "raw"
+        perm = sort_perm_host(pack_words(batch.seq, kind, device),
+                              batch.lens, True)
         if perm is not None:
             return perm
     words = seq_words(batch.seq, device)
@@ -157,7 +251,7 @@ def sort_perm_by_seq(batch, device: torch.device,
 
 def sort_perm_by_name(batch, device: torch.device,
                       mesh_n: int = 0) -> np.ndarray:
-    from ngstpu.io.native import fill_padded
+    from ..io.native import fill_padded
 
     lmax = max(int(batch.name_lens.max(initial=0)), 4)
     lmax = (lmax + 3) // 4 * 4

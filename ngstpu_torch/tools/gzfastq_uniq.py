@@ -26,20 +26,57 @@ import sys
 import numpy as np
 import torch
 
-from ngstpu.io.fastq import read_fastq_file
-from ngstpu.io.native import concat_pairs
-from ngstpu.io.stream import open_output, with_suffix
-from ngstpu.ops.hostsort import sum_quality_host
-from ngstpu.tools.emitters import (CHUNK_RECORDS, _CloningSink, _fresh,
-                                   _RecyclingSink, _RingWriter,
-                                   _sort_host_async)
-from ngstpu.tools.gzfastq_uniq import _emit, _pad4
-from ngstpu.utils.timing import StageRusage, StageTimer
-
+from ..io.fastq import format_fastq, read_fastq_file
+from ..io.native import concat_pairs
+from ..io.stream import open_output, with_suffix
+from ..ops.hostsort import sum_quality_host
 from ..ops.sortengine import dedup_rows
 from ..utils.device import check_mesh, resolve_device
 from ..utils.linkprobe import link_verdict, probe_link
-from .emitters import _sort_device_async
+from ..utils.timing import StageRusage, StageTimer
+from .emitters import (CHUNK_RECORDS, _CloningSink, _fresh, _RecyclingSink,
+                       _RingWriter, _sort_device_async, _sort_host_async)
+
+OUT_CHUNK = 1 << 20
+
+
+def _pad4(n: int) -> int:
+    return max((n + 3) // 4 * 4, 4)
+
+
+def _emit(out, batch, rep: np.ndarray, counts: np.ndarray,
+          seq_override=None, lens_override=None) -> None:
+    """Write the representative records `rep` with their group counts
+    (the JAX package's gzfastq_uniq._emit): the fused native gather and
+    format in chunks, or format_fastq without the native library."""
+    from ..io.native import format_fastq_take, have_native
+
+    if len(rep) and have_native():
+        # chunked so a threaded writer overlaps formatting with the file
+        # writes (utils/iopipe.TeeWriter)
+        seq = np.ascontiguousarray(batch.seq if seq_override is None
+                                   else seq_override)
+        slens = batch.lens if lens_override is None else lens_override
+        idx_s_full = (rep if seq_override is None
+                      else np.arange(len(rep), dtype=np.int64))
+        for lo in range(0, len(rep), OUT_CHUNK):
+            sl = slice(lo, lo + OUT_CHUNK)
+            text = format_fastq_take(batch.names, batch.name_starts,
+                                     batch.name_lens, rep[sl], counts[sl],
+                                     seq, slens, idx_s_full[sl],
+                                     batch.qual, batch.lens, rep[sl])
+            out.write(text)
+        return
+    for lo in range(0, len(rep), OUT_CHUNK):
+        idx = rep[lo:lo + OUT_CHUNK]
+        sub = batch.take(idx)
+        hi = lo + OUT_CHUNK
+        seq = sub.seq if seq_override is None else seq_override[lo:hi]
+        lens = sub.lens if lens_override is None else lens_override[lo:hi]
+        suffix = [b"\t%d" % c for c in counts[lo:lo + OUT_CHUNK]]
+        out.write(format_fastq(sub.names, sub.name_starts, sub.name_lens,
+                               seq, sub.qual, lens,
+                               qual_lens=sub.lens, count_suffix=suffix))
 
 
 def dedup_device(seq_padded: np.ndarray, lens: np.ndarray, sumq: np.ndarray,
@@ -72,7 +109,7 @@ def _run_se_fast(read1: str, outfile: str, timer: StageTimer,
     placement-aware sort, text emitted straight from the raw bytes with the
     second output kernel-cloned. Returns False when the fast path does not
     apply."""
-    from ngstpu.io.fastindex import index_fastq_fused, uniq_text
+    from ..io.fastindex import index_fastq_fused, uniq_text
 
     if not outfile or outfile.startswith("-"):
         return False
@@ -156,7 +193,7 @@ def run_se(read1: str, outfile: str, timer: StageTimer, device: torch.device,
             else:
                 o.close()
         return
-    from ngstpu.utils.iopipe import TeeWriter
+    from ..utils.iopipe import TeeWriter
 
     tee = TeeWriter([out, out2])
     try:
@@ -174,8 +211,8 @@ def _run_pe_fast(read1: str, read2: str, outfile: str, timer: StageTimer,
     placement-aware sort, then both _1_uniq/_2_uniq emitted straight from
     each mate's raw bytes. Returns False when the fast path does not
     apply."""
-    from ngstpu.io.fastindex import fused_pair_stats, index_fastq, uniq_text
-    from ngstpu.utils.bufpool import get_buffer, get_matrix
+    from ..io.fastindex import fused_pair_stats, index_fastq, uniq_text
+    from ..utils.bufpool import get_buffer, get_matrix
 
     if not outfile or outfile.startswith("-"):
         return False
@@ -233,7 +270,7 @@ def _run_pe_fast(read1: str, read2: str, outfile: str, timer: StageTimer,
 
 def run_pe(read1: str, read2: str, outfile: str, timer: StageTimer,
            device: torch.device, mesh_n: int = 0) -> None:
-    from ngstpu.io.native import fill_padded
+    from ..io.native import fill_padded
 
     if mesh_n <= 1 and not os.environ.get("NGSTPU_NO_FASTPATH") \
             and _run_pe_fast(read1, read2, outfile, timer, device):

@@ -18,9 +18,9 @@ import sys
 import numpy as np
 import torch
 
-from ngstpu.io.fastq import read_fastq_file
-from ngstpu.io.stream import open_output, with_suffix
-from ngstpu.utils.timing import StageTimer
+from ..io.fastq import read_fastq_file
+from ..io.stream import open_output, with_suffix
+from ..utils.timing import StageTimer
 
 from ..ops.sortengine import dedup_rows
 from ..utils.device import resolve_device

@@ -20,10 +20,10 @@ import sys
 import numpy as np
 import torch
 
-from ngstpu.io.fastq import format_fastq, read_fastq_file
-from ngstpu.io.native import concat_pairs, fill_padded
-from ngstpu.io.stream import ParallelGzipWriter
-from ngstpu.utils.timing import StageTimer
+from ..io.fastq import format_fastq, read_fastq_file
+from ..io.native import concat_pairs, fill_padded
+from ..io.stream import ParallelGzipWriter
+from ..utils.timing import StageTimer
 
 from ..ops.sortengine import dedup_rows
 from ..utils.device import resolve_device

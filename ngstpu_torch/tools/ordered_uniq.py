@@ -19,10 +19,10 @@ import sys
 import numpy as np
 import torch
 
-from ngstpu.io.fastq import read_fastq_file
-from ngstpu.io.native import format_fastq_take
-from ngstpu.io.stream import open_output
-from ngstpu.utils.timing import StageTimer
+from ..io.fastq import read_fastq_file
+from ..io.native import format_fastq_take
+from ..io.stream import open_output
+from ..utils.timing import StageTimer
 
 from ..ops.sortengine import dedup_rows
 from ..utils.device import resolve_device

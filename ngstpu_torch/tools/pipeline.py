@@ -29,20 +29,17 @@ import threading
 import numpy as np
 import torch
 
-from ngstpu.io.fastq import format_fastq
-from ngstpu.ops.hostsort import sum_quality_host
-from ngstpu.tools.emitters import (CHUNK_RECORDS, _CloningSink,
-                                   _RecyclingSink, _RingWriter, _fresh,
-                                   _sort_host_async)
-from ngstpu.tools.fastq_trim import trim_batch
-from ngstpu.tools.gzfastq_uniq import _emit
-from ngstpu.utils.timing import StageTimer
-
+from ..io.fastq import format_fastq
 from ..ops.count import QCAccumulator
+from ..ops.hostsort import sum_quality_host
 from ..utils.device import resolve_device
 from ..utils.linkprobe import link_verdict, probe_link
-from .emitters import _sort_device_async
+from ..utils.timing import StageTimer
+from .emitters import (CHUNK_RECORDS, _CloningSink, _fresh, _RecyclingSink,
+                       _RingWriter, _sort_device_async, _sort_host_async)
 from .fastq_count import _row
+from .fastq_trim import trim_batch
+from .gzfastq_uniq import _emit
 
 
 def run_fast(fused, infile: str, prefix: str, start: int, end: int,
@@ -50,8 +47,8 @@ def run_fast(fused, infile: str, prefix: str, start: int, end: int,
     """Offset-indexed overlapped pipeline over the one-sweep
     index_fastq_fused result. Returns None when the data is not pure ACGT
     (the caller falls back to the generic path)."""
-    from ngstpu.io.fastindex import trim_text, uniq_text
-    from ngstpu.utils.bufpool import get_buffer
+    from ..io.fastindex import trim_text, uniq_text
+    from ..utils.bufpool import get_buffer
 
     ix, words_all, sumq_all, hist_q, hist_len, bucket, ok = fused
     if not ok:
@@ -130,12 +127,12 @@ def run_fast(fused, infile: str, prefix: str, start: int, end: int,
 
 def run_generic(infile: str, prefix: str, start: int, end: int,
                 timer: StageTimer, device: torch.device) -> dict:
-    from ngstpu.io.fastq import FastqChunkReader, concat_batches
-    from ngstpu.io.native import format_fastq_take
-    from ngstpu.ops.hostsort import classify_alphabet, pack_words_host
-    from ngstpu.utils.iopipe import TeeWriter
-
-    from ..ops.sortengine import dedup_sorted, pack_for_dedup, words_tensor
+    from ..io.fastq import FastqChunkReader, concat_batches
+    from ..io.native import format_fastq_take
+    from ..ops.hostsort import classify_alphabet
+    from ..ops.sortengine import (dedup_sorted, pack_for_dedup, pack_words,
+                                  words_tensor)
+    from ..utils.iopipe import TeeWriter
 
     # Parse chunk by chunk: each chunk's quality histogram goes to the
     # device and its packed sort words are shipped while the reader
@@ -157,7 +154,7 @@ def run_generic(infile: str, prefix: str, start: int, end: int,
                 kind = k
             if k == kind:
                 word_chunks.append(words_tensor(
-                    pack_words_host(chunk.seq, kind), device))
+                    pack_words(chunk.seq, kind, device), device))
             else:
                 mixed = True
         batches.append(chunk)
@@ -241,7 +238,7 @@ def run(infile: str, prefix: str, start: int, end: int,
     timer = timer or StageTimer()
     dev = resolve_device(device)
     if not os.environ.get("NGSTPU_NO_FASTPATH"):
-        from ngstpu.io.fastindex import index_fastq_fused
+        from ..io.fastindex import index_fastq_fused
 
         fused = index_fastq_fused(infile, pool="pipe")
         if fused is not None:

@@ -20,8 +20,8 @@ import sys
 import numpy as np
 import torch
 
-from ngstpu.ops.twobit_host import unpack2bit_np
-from ngstpu.utils.timing import StageTimer
+from ..ops.twobit_host import unpack2bit_np
+from ..utils.timing import StageTimer
 
 from ..ops.twobit import unpack2bit
 from ..utils.device import resolve_device

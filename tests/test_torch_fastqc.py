@@ -63,12 +63,31 @@ def test_fastqc_stats(L, rows):
     exp = {k: np.asarray(v) for k, v in J.fastqc_stats(
         jnp.asarray(seq), jnp.asarray(qual), jnp.asarray(lens),
         jnp.int32(n_valid)).items()}
-    C = min(L, 512)
-    assert tuple(got["quality"].shape) == (C, 128)
-    assert np.array_equal(got["quality"].numpy(), exp["quality"][:C])
-    for k in ("ntval", "len_hist", "gc_frac"):
+    assert tuple(got["quality"].shape) == (L, 128)
+    for k in ("quality", "ntval", "len_hist", "gc_frac"):
         assert str(got[k].dtype)[6:] == str(exp[k].dtype), k
         assert np.array_equal(got[k].numpy(), exp[k]), k
+    if L > 512:  # reads past 512 cycles count in full
+        assert (lens[:n_valid] > 512).any() and got["quality"][512:].sum() > 0
+
+
+@pytest.mark.parametrize("max_len", [0, 1, 300, 511, 512, 600, 700])
+def test_fastqc_stats_max_len(max_len):
+    """len_hist for any max_len, lengths past it and past 512 included
+    (JAX takes any max_len); the quality matrix stays [L, 128]."""
+    seq, qual, lens = _batch(600, seed=7)
+    lens[::11] = 600  # full-width reads
+    n_valid = len(lens) - 4
+    got = T.fastqc_stats(_t(seq), _t(qual), _t(lens), n_valid,
+                         max_len=max_len)
+    exp = J.fastqc_stats(jnp.asarray(seq), jnp.asarray(qual),
+                         jnp.asarray(lens), jnp.int32(n_valid),
+                         max_len=max_len)
+    for k in ("quality", "len_hist"):
+        assert np.array_equal(got[k].numpy(), np.asarray(exp[k])), k
+    assert tuple(got["len_hist"].shape) == (max_len,)
+    if max_len >= 600:
+        assert int(got["len_hist"][599]) >= len(lens[:n_valid:11])
 
 
 @pytest.mark.parametrize("L", [8, 20, 90, 128, 301])
@@ -256,8 +275,8 @@ def test_fastqc_cli(tmp_path, monkeypatch, name, placement):
 
 
 def test_cli_quality_matrix_at_100_cycles(tmp_path):
-    """fastqc_stats' 512-cycle prefix leaves the tool's chart width at the
-    batch's padded width."""
+    """fastqc_stats' [L, 128] quality matrix leaves the tool's chart width
+    at the batch's padded width."""
     p = tmp_path / "r.fq"
     p.write_bytes(illumina_fastq_fast(300, 100, seed=5, n_tiles=3))
     b = read_fastq_file(str(p))

@@ -1,6 +1,6 @@
-"""fastq_count_kthread through the port's CLI (device="cpu") against
-ngstpu's CLI: the same files with the same bytes (gzip outputs
-decompressed); and the port's CLI dispatch of the host-only FASTQ tools."""
+"""fastq_count_kthread and the host-only FASTQ tools through the port's
+CLI (device="cpu") against ngstpu's CLI: the same files with the same
+bytes (gzip outputs decompressed)."""
 
 import gzip
 import importlib
@@ -115,27 +115,22 @@ HOST_CASES = {
 
 @pytest.mark.parametrize("case", list(HOST_CASES))
 def test_host_only_tools(tmp_path, monkeypatch, inputs, case):
-    """The port's CLI hands a HOST_ONLY tool to ngstpu's own jax-free
-    main (the module ngstpu's CLI runs, so its files are ngstpu's) with
-    the tool's argv as given and no device, and returns its exit code;
-    the tool writes non-empty outputs."""
+    """Each HOST_ONLY tool is the port's own copy (a module of
+    ngstpu_torch, called without a device) and writes the same files with
+    the same bytes as ngstpu's tool on the same input (gzip outputs
+    decompressed), non-empty."""
     tool = case.rsplit("_", 1)[0] if case not in TOOLS else case
     assert tool in HOST_ONLY
+    assert TOOLS[tool] == f"ngstpu_torch.tools.{tool}"
     mod = importlib.import_module(TOOLS[tool])
-    assert mod.__name__ == f"ngstpu.tools.{tool}"
-    real, calls = mod.main, []
+    calls = []
+    real = mod.main
 
     def spy(argv):
         calls.append(list(argv))
         return real(argv)
 
     monkeypatch.setattr(mod, "main", spy)
-    monkeypatch.chdir(tmp_path)
-    argv = [str(tmp_path / "o") if a == "OUT" else
-            str(tmp_path / a[3:]) if a.startswith("IN_") else a
-            for a in HOST_CASES[case]]
-    before = set(os.listdir(tmp_path))
-    assert torch_cli(["--device", "cpu", tool, *argv]) == 0
-    assert calls == [argv]
-    written = set(os.listdir(tmp_path)) - before
-    assert written and all((tmp_path / f).stat().st_size for f in written)
+    out = _run_both(tmp_path, monkeypatch, tool, HOST_CASES[case])
+    assert len(calls) == 1
+    assert out and all(out.values()), sorted(out)
