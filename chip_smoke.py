@@ -22,7 +22,14 @@ byte-compared with a run of the port on the CPU. Then fastqc SE on one
 lane file (10M x 100 bp, Illumina tile names) and PE on 2,097,152 pairs,
 forced to the card and in the default placement, against a host-placement
 run on the CPU (every TSV and PNG); fastq_count_kthread -H -L -t 2 on the
-generic route, cuda against cpu; and each host-only tool once.
+generic route, cuda against cpu; and each host-only tool once. Last, the
+BAM pileup tools on bench_pileup.py's WGS-shaped BAM (2^23 reads over 24 x
+100 Mbp) and its small genome (2^20 reads over 4 x 5 Mbp), made and
+indexed by the port: bam2depth and bam2wig with the sparse sweep forced
+onto the card and in the default placement or every pileup mode, the
+dense engine's negative-start fallback onto the card, bam_sliding_count,
+bamSplitChr and index, each against a host-placement run on the CPU;
+then one profiled sparse run and the sweep alone on one chromosome.
 
 Any failed check exits non-zero. The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -88,10 +95,10 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def same_file(a: pathlib.Path, b: pathlib.Path) -> bool:
-    """Byte equality; gzip files compare decompressed."""
+    """Byte equality; gzip files and BAMs compare decompressed."""
     import gzip
 
-    opener = gzip.open if a.name.endswith(".gz") else open
+    opener = gzip.open if a.name.endswith((".gz", ".bam")) else open
     with opener(a, "rb") as fa, opener(b, "rb") as fb:
         while True:
             x, y = fa.read(64 << 20), fb.read(64 << 20)
@@ -840,6 +847,327 @@ def phase_host_tools() -> None:
     shutil.rmtree(d)
 
 
+# bench_pileup.py's config-5 input (24 x 100 Mbp, 2^23 reads x 100 bp, seed
+# 7) and its small-genome regime (4 x 5 Mbp, 2^20 reads)
+WGS_REFS = [(f"chr{i + 1}", 100_000_000) for i in range(24)]
+WGS_READS = 1 << 23
+SMALL_REFS = [(f"chr{i + 1}", 5_000_000) for i in range(4)]
+SMALL_READS = 1 << 20
+# the reference of every BAM run: the host placement on the CPU in the
+# default pileup mode; the sparse route forced onto the card; the card in
+# a pileup mode of choice; the default placement
+BAM_HOST = {"NGSTPU_PILEUP_MODE": None, "NGSTPU_LINK": "host"}
+SPARSE = {"NGSTPU_PILEUP_MODE": "sparse", "NGSTPU_LINK": "device"}
+BAM_DEFAULT = {"NGSTPU_PILEUP_MODE": None, "NGSTPU_LINK": None}
+
+
+def bam_mode(mode: str) -> dict:
+    return {"NGSTPU_PILEUP_MODE": mode, "NGSTPU_LINK": "device"}
+
+
+def bam_runs(label: str, tool: str, argv: list[str], runs: list, card: str,
+             reads: int, genome: int, after=None) -> dict:
+    """`tool` through the port's CLI once per (tag, device, env) of `runs`,
+    each in a working directory of its own (the bedGraph lands there; OUT
+    in argv names the output prefix there). The first run is the
+    reference: every later one must write the same files with the same
+    bytes (BAMs decompressed), the same standard output and the same
+    stderr apart from timings. `after(d)`, when given, runs after each run
+    (to move files written beside the input into d). The sweep counter is
+    cleared just before each run and read just after. Prints each run's
+    wall, reads/s, bp/s (the genome's bp over the wall) and sweeps."""
+    from ngstpu_torch.ops.bamops import PILEUP
+    from ngstpu_torch.tools import cli
+
+    slug = label.replace(" ", "_").replace("-", "").replace(":", "")
+    res, ref = {}, None
+    home = os.getcwd()
+    for tag, device, env in runs:
+        d = WORK / f"{slug}_{tag}"
+        d.mkdir()
+        args = [str(d / "o") if a == "OUT" else a for a in argv]
+        set_env(env)
+        PILEUP.clear()
+        out, err = io.StringIO(), io.StringIO()
+        os.chdir(d)
+        try:
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(["--device", device, tool, *args])
+            if device == "cuda":
+                import torch
+
+                torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        finally:
+            os.chdir(home)
+        check(rc == 0, f"{label} ({tag}): exit code {rc}: "
+                       f"{err.getvalue()[-2000:]}")
+        if after is not None:
+            after(d)
+        sweeps = PILEUP["sparse_pileup_sweep", "cuda"]
+        check(not PILEUP["sparse_pileup_sweep", "cpu"],
+              f"{label} ({tag}): the sweep ran on the CPU")
+        info = dict(wall=wall, sweeps=sweeps, out=out.getvalue(),
+                    err=[ln.replace(str(d), "DIR")
+                         for ln in err.getvalue().splitlines()
+                         if not TIMING_LINE.search(ln)],
+                    names=sorted(f.name for f in d.iterdir()))
+        check(info["names"] and all((d / n).stat().st_size
+                                    for n in info["names"]),
+              f"{label} ({tag}): empty or missing outputs {info['names']}")
+        if ref is None:
+            ref = d
+        else:
+            first = res[runs[0][0]]
+            for key in ("names", "out", "err"):
+                check(info[key] == first[key],
+                      f"{label} ({tag}): {key} {info[key]} differs from the "
+                      f"{runs[0][0]} run's {first[key]}")
+            for n in info["names"]:
+                check(same_file(d / n, ref / n),
+                      f"{label} ({tag}): {n} differs from the {runs[0][0]} "
+                      f"run")
+            shutil.rmtree(d)
+        res[tag] = info
+        print(f"{label} {tag} ({device}): wall {wall:.3f}s, "
+              f"{reads / wall:.0f} reads/s, {genome / wall:.0f} bp/s; cuda "
+              f"sweeps {sweeps} [{card}]")
+    shutil.rmtree(ref)
+    if len(runs) > 1:
+        print(f"  {label}: {len(res[runs[0][0]]['names'])} files, stdout and "
+              f"stderr of {', '.join(t for t, _, _ in runs[1:])} "
+              f"byte-identical to the {runs[0][0]} run")
+    return res
+
+
+def phase_bam(card: str) -> dict:
+    """The BAM pileup tools on bench_pileup.py's WGS-shaped input and its
+    small genome, each run held against a host-placement run of the port
+    on the CPU in the default pileup mode. bam2depth -W and bam2wig on the
+    WGS BAM with the sparse route forced onto the card (one sweep per
+    chromosome with events) and bam2depth in the default placement; on the
+    small genome both tools in dense, events and sparse-on-card; the dense
+    engine's negative-start fallback into the sparse route on the card;
+    bam_sliding_count with and without -r, bamSplitChr and index. Then one
+    more sparse bam2depth on the WGS BAM under torch.profiler. Returns the
+    cuda sweeps of the forced-sparse runs."""
+    from ngstpu_torch.io.bam import choose_pileup_mode
+    from ngstpu_torch.testing.bamfixtures import (encode_record, make_bam,
+                                                  random_bam_fast)
+    from ngstpu_torch.utils import linkprobe
+
+    sweeps = {}
+    bams = {}
+    for name, refs, reads in (("wgs", WGS_REFS, WGS_READS),
+                              ("small", SMALL_REFS, SMALL_READS)):
+        t0 = time.monotonic()
+        bams[name] = WORK / f"{name}.bam"
+        random_bam_fast(str(bams[name]), refs, reads, seed=7)
+        print(f"input: {name} BAM, {reads} reads x 100 bp over "
+              f"{len(refs)} x {refs[0][1]} bp, {bams[name].stat().st_size} "
+              f"bytes, made in {time.monotonic() - t0:.2f}s")
+    host = ("host", "cpu", BAM_HOST)
+    for name, refs, reads in (("wgs", WGS_REFS, WGS_READS),
+                              ("small", SMALL_REFS, SMALL_READS)):
+        bai = f"{bams[name]}.bai"  # where bam_sliding_count -r looks
+        bam_runs(f"index {name}", "index", [str(bams[name]), "OUT"],
+                 [host, ("cuda", "cuda", BAM_HOST)], card, reads,
+                 sum(n for _, n in refs),
+                 after=lambda d, bai=bai: shutil.copy(d / "o", bai))
+
+    # the WGS BAM: the sparse route on the card, then the default placement
+    wgs, genome = str(bams["wgs"]), sum(n for _, n in WGS_REFS)
+    for label, tool, argv in (
+            ("bam2depth WGS", "bam2depth",
+             ["-W", "-w", "20000", "-o", "OUT", wgs]),
+            ("bam2wig WGS", "bam2wig", ["-o", "OUT", wgs])):
+        runs = [host, ("sparse", "cuda", SPARSE)]
+        if tool == "bam2depth":
+            runs.append(("default", "cuda", BAM_DEFAULT))
+        res = bam_runs(label, tool, argv, runs, card, WGS_READS, genome)
+        check(res["sparse"]["sweeps"] == len(WGS_REFS),
+              f"{label}: {res['sparse']['sweeps']} sweeps on the card, "
+              f"expected one per chromosome with events ({len(WGS_REFS)})")
+        sweeps[label] = res["sparse"]["sweeps"]
+        if tool == "bam2depth":
+            set_env(BAM_DEFAULT)
+            print(f"  default placement: pileup mode "
+                  f"{choose_pileup_mode(wgs)!r}, link verdict "
+                  f"{linkprobe.link_verdict()!r}, cuda sweeps "
+                  f"{res['default']['sweeps']}")
+
+    # the small genome: every pileup mode, the sparse one on the card
+    small, genome = str(bams["small"]), sum(n for _, n in SMALL_REFS)
+    for label, tool, argv in (
+            ("bam2depth small", "bam2depth", ["-W", "-o", "OUT", small]),
+            ("bam2wig small", "bam2wig", ["-o", "OUT", small])):
+        res = bam_runs(label, tool, argv,
+                       [host, ("dense", "cuda", bam_mode("dense")),
+                        ("events", "cuda", bam_mode("events")),
+                        ("sparse", "cuda", SPARSE)],
+                       card, SMALL_READS, genome)
+        check(res["sparse"]["sweeps"] == len(SMALL_REFS)
+              and not res["dense"]["sweeps"] and not res["events"]["sweeps"],
+              f"{label}: cuda sweeps {[r['sweeps'] for r in res.values()]}")
+        sweeps[label] = res["sparse"]["sweeps"]
+
+    # a negative-start record on chromosome 2: the dense engine writes
+    # chromosome 1, then raises DensePileupUnsupported (small chunks, as in
+    # tests/test_bam_tools.py), and the tool reruns on the sparse route
+    seq = "ACGT" * 25
+    recs = [encode_record(f"a{i}", 0, 10 + i, 30, "100M", seq)
+            for i in range(800)]
+    recs += [encode_record(f"b{i}", 1, 5 + i, 30, "100M", seq)
+             for i in range(800)]
+    recs += [encode_record("bad", 1, -7, 30, "100M", seq)]
+    mid = WORK / "mid.bam"
+    make_bam(str(mid), [("c1", 5000), ("c2", 4000)], recs)
+    from ngstpu_torch.io import bam as iobam
+
+    dense = iobam.stream_depth_dense
+    iobam.stream_depth_dense = lambda p, m, **kw: dense(p, m, chunk_bytes=2048,
+                                                        **kw)
+    try:
+        res = bam_runs("bam2depth negative start", "bam2depth",
+                       ["-W", "-w", "700", "-o", "OUT", str(mid)],
+                       [host, ("dense", "cuda", bam_mode("dense"))], card,
+                       len(recs), 9000)
+    finally:
+        iobam.stream_depth_dense = dense
+    check(res["dense"]["sweeps"] == 2,
+          f"negative start: {res['dense']['sweeps']} cuda sweeps, expected "
+          f"2 (the dense engine's fallback did not reach the card)")
+    sweeps["bam2depth negative start"] = res["dense"]["sweeps"]
+
+    # the host-only tools on the small genome (the PNG lands beside the
+    # input: moved into the run's directory to be compared too)
+    png = pathlib.Path(small + "_hits.png")
+    host_runs = [host, ("cuda", "cuda", BAM_HOST)]
+    for label, argv in (("bam_sliding_count", []),
+                        ("bam_sliding_count -r", ["-r", "chr1:1-1000000"])):
+        bam_runs(label, "bam_sliding_count",
+                 ["-w", "5000", *argv, "-o", "OUT", small], host_runs, card,
+                 SMALL_READS, genome,
+                 after=lambda d: shutil.move(png, d / png.name))
+    bam_runs("bamSplitChr", "bamSplitChr", ["-o", "OUT", small], host_runs,
+             card, SMALL_READS, genome)
+
+    profile_bam(wgs, card)
+    time_sweep(wgs, card)
+    print(f"PILEUP cuda sweeps by run: {sweeps}")
+    return sweeps
+
+
+def sparse_bam2depth(wgs: str, profiler) -> float:
+    """One sparse bam2depth -W on the WGS BAM on the card inside the
+    context manager `profiler`; returns its wall."""
+    import torch
+
+    from ngstpu_torch.tools import bam2depth
+
+    d = WORK / "bam_profile"
+    d.mkdir()
+    set_env(SPARSE)
+    home = os.getcwd()
+    os.chdir(d)
+    try:
+        with profiler:
+            t0 = time.monotonic()
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc = bam2depth.main(["-W", "-w", "20000", "-o", str(d / "o"),
+                                     wgs], device="cuda")
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        os.chdir(home)
+    shutil.rmtree(d)
+    check(rc == 0, "profiled bam2depth failed")
+    return wall
+
+
+def profile_bam(wgs: str, card: str) -> None:
+    """Two more sparse bam2depth runs on the WGS BAM: under torch.profiler,
+    the card's busy share of the wall and the sweep's device time per
+    launch (kernels, then copies); under cProfile, the host functions that
+    take the most time (cProfile's own cost inflates that run's wall)."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ngstpu_torch.ops.bamops import PILEUP
+    from ngstpu_torch.tools.profile_pipeline import TOP, device_ops
+
+    PILEUP.clear()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    wall = sparse_bam2depth(wgs, prof)
+    n = PILEUP["sparse_pileup_sweep", "cuda"]
+    busy, ops = device_ops(prof)
+    copy_ms = sum(ms for name, (ms, _) in ops.items()
+                  if name.startswith(("Memcpy", "Memset")))
+    kernel_ms = sum(ms for ms, _ in ops.values()) - copy_ms
+    print(f"bam2depth WGS sparse profiled (cuda): wall {wall:.3f}s, device "
+          f"busy {busy:.3f} ms ({100 * busy / 1e3 / wall:.3f}% of wall), "
+          f"{n} sweeps: {kernel_ms / n:.3f} ms of kernels and "
+          f"{copy_ms / n:.3f} ms of copies and memsets per launch [{card}]")
+    for name, (ms, count) in sorted(ops.items(),
+                                    key=lambda kv: -kv[1][0])[:TOP]:
+        print(f"  {ms:10.3f} ms  x{count:<5d} {name[:90]}")
+    host = cProfile.Profile()
+    wall = sparse_bam2depth(wgs, host)
+    stats = pstats.Stats(host)
+    print(f"bam2depth WGS sparse under cProfile (cuda): wall {wall:.3f}s; "
+          f"host functions by own time [{card}]")
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:2 * TOP]
+    for (path, line, func), (_, calls, own, cum, _) in top:
+        print(f"  own {own:8.3f}s  cum {cum:8.3f}s  x{calls:<8d} "
+              f"{pathlib.Path(path).name}:{line}({func})")
+
+
+def time_sweep(wgs: str, card: str) -> None:
+    """sparse_pileup_sweep alone on the first WGS chromosome's events, on
+    the card (CUDA events, warm), with the bound of its I/O: 8 bytes read
+    and 9 written per event over the card's memory rate (the sort's own
+    passes come on top); and merged_intervals on the same events with
+    the device verdict (upload, sweep, pull, compaction) against the
+    host verdict (the native radix sweep). The card's sweep is held
+    against the same function on CPU tensors (compacted rows, exact).
+    PILEUP is not read after these launches."""
+    import torch
+
+    from ngstpu_torch.io.bam import DEF_MASK
+    from ngstpu_torch.ops import bamops
+
+    _, events = bamops.stream_chrom_events(wgs, DEF_MASK)
+    pos, delta = next(events)
+    events.close()
+    E = len(pos)
+    tp = torch.from_numpy(pos).cuda()
+    td = torch.from_numpy(delta).cuda()
+    g_pos, g_cum, g_last = (x.cpu().numpy() for x in
+                            bamops.sparse_pileup_sweep(tp, td, E))
+    w_pos, w_cum, w_last = (x.numpy() for x in bamops.sparse_pileup_sweep(
+        torch.from_numpy(pos), torch.from_numpy(delta), E))
+    check(np.array_equal(g_pos[g_last], w_pos[w_last])
+          and np.array_equal(g_cum[g_last], w_cum[w_last]),
+          "sparse_pileup_sweep on the card differs from CPU tensors")
+    ms = cuda_ms(lambda: bamops.sparse_pileup_sweep(tp, td, E), 20)
+    walls = {}
+    for verdict in ("device", "host", "device", "host"):
+        t0 = time.monotonic()
+        bamops.merged_intervals(pos, delta, verdict, device="cuda")
+        walls.setdefault(verdict, []).append(time.monotonic() - t0)
+    bound = E * 17 / HBM_BYTES_PER_S * 1e3
+    print(f"sparse_pileup_sweep chr1 (E={E} events): card {ms:.4f} ms per "
+          f"launch (equal to CPU tensors, compacted), I/O bound "
+          f"{bound:.4f} ms (share {bound / ms:.3f}); merged_intervals "
+          f"device verdict {min(walls['device']) * 1e3:.3f} ms, host "
+          f"verdict (native sweep) {min(walls['host']) * 1e3:.3f} ms "
+          f"[{card}]")
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -875,15 +1203,25 @@ def main(argv: list[str] | None = None) -> int:
         if "ptxas info" in line:
             print(f"  {line.strip()}")
 
-    hist = phase_kernel(card)
+    walls = {}
+
+    def timed(name: str, phase, *args):
+        t0 = time.monotonic()
+        out = phase(*args)
+        walls[name] = round(time.monotonic() - t0, 3)
+        return out
+
+    hist = timed("kernel", phase_kernel, card)
     paths = {}
-    phase_sorts(np.random.default_rng(2024))
-    paths["pipeline generic"] = phase_pipeline(card)
-    phase_tools(card)
-    paths["fastqc"] = phase_fastqc(card)
-    paths["fastq_count_kthread"] = phase_kthread(card)
-    phase_host_tools()
+    timed("sorts", phase_sorts, np.random.default_rng(2024))
+    paths["pipeline generic"] = timed("pipeline", phase_pipeline, card)
+    timed("tools", phase_tools, card)
+    paths["fastqc"] = timed("fastqc", phase_fastqc, card)
+    paths["fastq_count_kthread"] = timed("kthread", phase_kthread, card)
+    timed("host tools", phase_host_tools)
+    timed("bam", phase_bam, card)
     shutil.rmtree(WORK, ignore_errors=True)
+    print(f"phase walls (s): {walls}")
     print(f"qc_hist launches by path: {paths}")
     check(all(paths.values()), f"a path never launched qc_hist: {paths}")
 

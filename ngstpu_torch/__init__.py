@@ -8,17 +8,19 @@ the buffer pool; the ring and clone writers; the host sorts) and replaces
 the device half:
 
 - ``ngstpu_torch.io``      host I/O: gzip/FASTQ chunk decoding and the
-                           offset index over the native library.
+                           offset index over the native library; the
+                           BGZF, BAM and BAI readers and writers.
 - ``ngstpu_torch.kernels`` hand-written CUDA kernels for sm_90a, built from
                            ``csrc/`` with nvcc at first use, each beside its
                            plain PyTorch version.
 - ``ngstpu_torch.ops``     QC histogram accumulation, the stable sort/dedup
                            engine with its key packers, the 2-bit codec and
-                           the fastqc modules on torch tensors; the host
-                           sorts, packers and codecs.
+                           the fastqc modules and the pileup sweep on
+                           torch tensors; the host sorts, packers, codecs
+                           and CIGAR walks.
 - ``ngstpu_torch.rng``     bit-exact RNG parity (GSL MT19937, glibc rand,
                            X31) for ``gzfastq_sample``.
-- ``ngstpu_torch.tools``   every FASTQ tool of ngstpu's CLI
+- ``ngstpu_torch.tools``   every FASTQ and BAM tool of ngstpu's CLI
                            (``python -m ngstpu_torch.tools.cli <tool>``).
 - ``ngstpu_torch.utils``   device selection, the link probe, the buffer
                            pool, stage timers, PNG writing.

@@ -31,9 +31,15 @@ TOOLS = {
     "fastqc": "ngstpu_torch.tools.fastqc",
     "pipeline": "ngstpu_torch.tools.pipeline",
     "ordered_uniq": "ngstpu_torch.tools.ordered_uniq",
+    "bam2depth": "ngstpu_torch.tools.bam2depth",
+    "bam2wig": "ngstpu_torch.tools.bam2wig",
+    "bam_sliding_count": "ngstpu_torch.tools.bam_sliding_count",
+    "bamSplitChr": "ngstpu_torch.tools.bam_split_chr",
+    "index": "ngstpu_torch.tools.bam_index",
 }
 HOST_ONLY = frozenset(("fastq_trim", "pick_pair", "gzfastq_sample",
-                       "gzfastq_mrle"))
+                       "gzfastq_mrle", "bam_sliding_count", "bamSplitChr",
+                       "index"))
 
 
 def _usage() -> int:
@@ -69,8 +75,9 @@ def main(argv: list[str] | None = None) -> int:
         sys.stderr.write(f"ngstpu-torch {name}: {e}\n")
         return 1
     except (ValueError, EOFError, zlib.error) as e:
-        # malformed input (bad FASTQ record structure, truncated gzip
-        # streams) fails cleanly like a CLI, not with a traceback
+        # malformed input (bad FASTQ record structure, bad BAM/BGZF magic,
+        # truncated gzip streams) fails cleanly like a CLI, not with a
+        # traceback
         sys.stderr.write(f"ngstpu-torch {name}: invalid input: {e}\n")
         return 1
     except BrokenPipeError:

@@ -38,6 +38,22 @@ def link_verdict() -> str | None:
     return _VERDICT[0] if _VERDICT else None
 
 
+def note_transfer(nbytes: int, seconds: float) -> None:
+    """Update the verdict from a REALIZED device-to-host pull (the device
+    pileup sweep's, ops/bamops.merged_intervals). A link's throughput can
+    swing over time, so a single lucky probe can mis-place every later op;
+    every big pull re-votes instead. Small transfers are RTT-dominated and
+    ignored, and so is every pull while NGSTPU_LINK forces the verdict."""
+    if os.environ.get("NGSTPU_LINK") in ("host", "device"):
+        return
+    if nbytes < (4 << 20) or seconds <= 0:
+        return
+    v = "host" if nbytes / seconds < bw_min() else "device"
+    _VERDICT.clear()
+    _VERDICT.append(v)
+    _store_verdict(v)
+
+
 def _cache_ttl() -> float:
     return float(os.environ.get("NGSTPU_LINK_TTL", "900"))
 

@@ -97,6 +97,23 @@ open(f"{d}/q6.fq", "wb").write(random_fastq(100, 40, seed=5,
                                             qual_alphabet=b"#/7<BF"))
 run("gzfastq_mrle", "-i", f"{d}/q6.fq", "-o", f"{d}/rle",
     out=f"{d}/rle_sort_by_seq.fq")
+from ngstpu_torch.ops.bamops import PILEUP
+from ngstpu_torch.testing.bamfixtures import random_bam_fast
+
+bam = f"{d}/b.bam"
+random_bam_fast(bam, [("c1", 30000), ("c2", 20000)], 600, seed=6)
+run("index", bam, out=f"{bam}.bai")
+os.environ["NGSTPU_LINK"] = "device"
+for mode in ("events", "dense", "sparse"):
+    os.environ["NGSTPU_PILEUP_MODE"] = mode
+    run("bam2depth", "-W", "-w", "5000", "-o", f"{d}/bd_{mode}", bam,
+        out=f"{d}/bd_{mode}.1.wig")
+    run("bam2wig", "-w", "5000", "-o", f"{d}/bw_{mode}", bam,
+        out=f"{d}/bw_{mode}.1.wig")
+assert PILEUP["sparse_pileup_sweep", "cpu"] == 4, PILEUP
+run("bam_sliding_count", "-w", "5000", "-r", "c1:1-10000", "-o", f"{d}/sc",
+    bam, out=f"{d}/sc.txt")
+run("bamSplitChr", "-o", f"{d}/sp", bam, out=f"{d}/sp_c2.bam")
 assert ran == set(cli.TOOLS), set(cli.TOOLS) - ran
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
