@@ -30,6 +30,14 @@ onto the card and in the default placement or every pileup mode, the
 dense engine's negative-start fallback onto the card, bam_sliding_count,
 bamSplitChr and index, each against a host-placement run on the CPU;
 then one profiled sparse run and the sweep alone on one chromosome.
+Then the warm server: `serve` in a thread on the card, with real CLI
+processes routed to it through NGSTPU_SERVER (fastq_count on the generic
+route, both pipeline routes, fastqc SE and bam2depth -W), each warm run
+byte-compared with and timed against fresh CLI processes; a request that
+runs out of device memory; `serve` as a process; one NGSTPU_TRACE run.
+Last, ops/align.py's batched Smith-Waterman on one bwa-mem-sized batch
+(65,536 pairs of 150 bp), timed, held against a CPU run and the scalar
+oracles.
 
 Any failed check exits non-zero. The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -57,6 +65,7 @@ SORT_ROWS, SORT_WORDS = 1 << 21, 7
 N_READS, READ_LEN, TRIM = 1 << 21, 100, (0, 50)
 OUTPUTS = (".count.tsv", ".trim.fastq", "_uniq.fq", "_sortKeyUniq.fq")
 BIG_READS = 10_000_000  # bench.py's gzfastq_uniq + gzfastq_sort input
+UNIQQ_READS = 1 << 19
 LANE_READS = 10_000_000  # one lane file of BASELINE config 3's size
 
 
@@ -480,22 +489,18 @@ def run_tool(tool: str, argv: list[str], device: str, env: dict) -> dict:
 
 
 def compare_runs(label: str, tool: str, argv: list[str], outputs: tuple,
-                 runs: list, reads: int, card: str,
-                 compare: bool = True) -> dict:
+                 runs: list, reads: int, card: str) -> dict:
     """Run `tool` once per (tag, device, env) in `runs`, the first being
     the reference. Every later run's output files and stderr lines must
-    equal the reference's (unless not `compare`: timing turns); each run's
-    outputs are removed once compared. Returns {tag: run info}."""
+    equal the reference's; each run's outputs are removed once compared.
+    Returns {tag: run info}."""
     slug = label.replace(" ", "_").replace("-", "")
     res = {}
     for tag, device, env in runs:
         prefix = WORK / f"{slug}_{tag}"
         info = run_tool(tool, [*argv, "-o", str(prefix)], device, env)
         files = [pathlib.Path(f"{prefix}{suf}") for suf in outputs]
-        if not compare:
-            for f in files:
-                f.unlink()
-        elif res:
+        if res:
             ref_tag = runs[0][0]
             check(info["err"] == res[ref_tag]["err"],
                   f"{label} ({tag}): stderr {info['err']} differs from the "
@@ -517,7 +522,7 @@ def compare_runs(label: str, tool: str, argv: list[str], outputs: tuple,
         print(f"    stages: {'; '.join(info['timing'])}")
     for f in res[runs[0][0]]["files"]:
         f.unlink(missing_ok=True)
-    if compare and len(runs) > 1:
+    if len(runs) > 1:
         print(f"  {label}: {', '.join(outputs) or 'output'} and stderr of "
               f"{', '.join(t for t, _, _ in runs[1:])} byte-identical to "
               f"the {runs[0][0]} run")
@@ -529,8 +534,8 @@ def phase_tools(card: str) -> None:
     of the port on the CPU (every route of ngstpu gives that run's bytes).
     At 10M reads: gzfastq_uniq and gzfastq_sort -s/-n on the fast route
     and the generic route with the work on the card, and in the default
-    placement. At 2,097,152 reads (pairs): gzfastq_uniq PE, uniqQ,
-    uniq_sort and ordered_uniq. The codec on the 10M input."""
+    placement. At 2,097,152 reads (pairs): gzfastq_uniq PE, uniq_sort and
+    ordered_uniq; uniqQ at 524,288. The codec on the 10M input."""
     from ngstpu_torch.ops import sortengine
     from ngstpu_torch.testing.fixtures import (random_fastq_fast,
                                               random_fastq_pair_fast)
@@ -563,10 +568,6 @@ def phase_tools(card: str) -> None:
         label = tool if tool == "gzfastq_uniq" else f"{tool} {argv[-1]}"
         res = compare_runs(label, tool, argv, outputs, big_runs, BIG_READS,
                            card)
-        # timing turns: host, device (above), device, host
-        compare_runs(label, tool, argv, outputs,
-                     [("fast2", "cuda", FAST), ("host2", "cpu", HOST)],
-                     BIG_READS, card, compare=False)
         for tag in ("fast", "generic", "default"):
             check(res[tag]["counts"]["sorts"] > 0,
                   f"{label} ({tag}): no sort ran on the card")
@@ -630,25 +631,30 @@ def phase_tools(card: str) -> None:
         check(res[tag]["counts"]["sorts"] > 0,
               f"gzfastq_uniq PE ({tag}): no sort ran on the card")
     comp = str(WORK / "comp.fq")
+    # gzfastq_uniqQ runs at about 0.12 M reads/s on either side: a quarter
+    # of the pipeline's input keeps its check inside the call's time
+    uq = WORK / "uq.fq"
+    uq.write_bytes(random_fastq_fast(UNIQQ_READS, READ_LEN, seed=123,
+                                     dup_frac=0.3))
     small_runs = [("host", "cpu", HOST), ("cuda", "cuda", FAST)]
-    for label, tool, argv, outputs in (
-            ("gzfastq_uniqQ -S", "gzfastq_uniqQ", ["-1", comp, "-S"],
-             ("_sortKeyUniq.fq",)),
-            ("gzfastq_uniqQ -C", "gzfastq_uniqQ", ["-1", comp, "-C"],
-             ("_sortKeyUniq.fq",)),
+    for label, tool, argv, outputs, reads in (
+            ("gzfastq_uniqQ -S", "gzfastq_uniqQ", ["-1", str(uq), "-S"],
+             ("_sortKeyUniq.fq",), UNIQQ_READS),
+            ("gzfastq_uniqQ -C", "gzfastq_uniqQ", ["-1", str(uq), "-C"],
+             ("_sortKeyUniq.fq",), UNIQQ_READS),
             ("gzfastq_uniq_sort SE", "gzfastq_uniq_sort", ["-1", comp],
-             ("_1_uniq.fq.gz",)),
+             ("_1_uniq.fq.gz",), N_READS),
             ("gzfastq_uniq_sort PE", "gzfastq_uniq_sort",
              ["-1", str(pe[0]), "-2", str(pe[1])],
-             ("_1_uniq.fq.gz", "_2_uniq.fq.gz")),
-            ("ordered_uniq", "ordered_uniq", ["-i", comp], ("",)),
+             ("_1_uniq.fq.gz", "_2_uniq.fq.gz"), N_READS),
+            ("ordered_uniq", "ordered_uniq", ["-i", comp], ("",), N_READS),
             ("ordered_uniq -r 20", "ordered_uniq", ["-i", comp, "-r", "20"],
-             ("",))):
-        res = compare_runs(label, tool, argv, outputs, small_runs, N_READS,
+             ("",), N_READS)):
+        res = compare_runs(label, tool, argv, outputs, small_runs, reads,
                            card)
         check(res["cuda"]["counts"]["sorts"] > 0,
               f"{label}: no sort ran on the card")
-    for path in pe:
+    for path in (*pe, uq):
         path.unlink()
 
 FASTQC_OPS = ("fastqc_stats", "adapter_content", "per_tile_quality",
@@ -1168,6 +1174,427 @@ def time_sweep(wgs: str, card: str) -> None:
           f"[{card}]")
 
 
+def cli_run(argv: list[str], cwd: pathlib.Path, env: dict,
+            rc: int = 0) -> tuple[float, subprocess.CompletedProcess]:
+    """One `python -m ngstpu_torch.tools.cli` process in cwd with env;
+    returns its wall and result, and fails unless it exits with rc."""
+    cwd.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-m", "ngstpu_torch.tools.cli",
+                        *argv], cwd=cwd, env=env, capture_output=True,
+                       timeout=600)
+    wall = time.monotonic() - t0
+    check(r.returncode == rc, f"{' '.join(argv)} (in {cwd.name}): exit code "
+                              f"{r.returncode}: {r.stderr.decode()[-2000:]}")
+    return wall, r
+
+
+def same_dir(a: pathlib.Path, b: pathlib.Path) -> bool:
+    names = sorted(f.name for f in a.iterdir())
+    return names == sorted(f.name for f in b.iterdir()) \
+        and all(same_file(a / n, b / n) for n in names)
+
+
+def sock_op(sock: str, op: str) -> dict:
+    import socket
+
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+        s.settimeout(60)
+        s.connect(sock)
+        s.sendall(json.dumps({"op": op}).encode() + b"\n")
+        return json.loads(s.makefile("rb").readline())
+
+
+def wait_for(path: str, alive, seconds: float) -> float:
+    """Seconds until `path` exists; fails if alive() turns False first or
+    the time runs out."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        check(alive(), f"the server died before it listened on {path}")
+        check(time.monotonic() - t0 < seconds,
+              f"no server listened on {path} within {seconds}s")
+        time.sleep(0.02)
+    return time.monotonic() - t0
+
+
+# the server's environment: the protocol carries none, so these apply to
+# every request; a case adds its own (set in this process between
+# requests, and given to its cold runs)
+SERVER_ENV = {"NGSTPU_LINK": "device", "NGSTPU_QC": None,
+              "NGSTPU_NO_FASTPATH": None, "NGSTPU_PILEUP_MODE": None,
+              "NGSTPU_SERVER": None, "NGSTPU_TRACE": None,
+              "NGSTPU_STAGE_JSON": None}
+
+
+def phase_server(card: str) -> int:
+    """The warm server: serve() in a thread of this process on the card
+    (NGSTPU_LINK=device), and real CLI processes routed to it through
+    NGSTPU_SERVER, each case against fresh CLI processes of the same
+    environment (the cold wall, median of 3): fastq_count -H on the
+    2,097,152 x 100 bp input with N calls on the generic route (the
+    qc_hist kernel), pipeline -s 0 -e 50 on both routes, fastqc SE on
+    2,097,152 tile-named reads and bam2depth -W on the small genome.
+    Every run's files and stdout must equal the first cold run's. Then a
+    request that runs out of device memory (rc 1, the server answers on),
+    `serve` as a process of its own (start, one request, shutdown, exit
+    0) and one NGSTPU_TRACE run, whose trace must name the kernel. Returns
+    the qc_hist launches made through the server."""
+    import statistics
+    import tempfile
+    import threading
+
+    import torch
+
+    from ngstpu_torch.kernels import hist_cuda
+    from ngstpu_torch.testing.fixtures import illumina_fastq_fast, with_n_calls
+    from ngstpu_torch.tools import server
+
+    d = WORK / "server"
+    d.mkdir()
+    t0 = time.monotonic()
+    gen = d / "gen.fq"
+    gen.write_bytes(with_n_calls((WORK / "comp.fq").read_bytes(), 0.01,
+                                 seed=123))
+    tiles = d / "tiles.fq"
+    tiles.write_bytes(illumina_fastq_fast(
+        N_READS, READ_LEN, seed=81, n_tiles=96, dup_frac=0.3, n_frac=0.01,
+        adapter_frac=0.005))
+    print(f"input: {N_READS} x {READ_LEN} bp with N calls and {N_READS} "
+          f"tile-named reads, made in {time.monotonic() - t0:.2f}s")
+    trim = ["-s", str(TRIM[0]), "-e", str(TRIM[1])]
+    # (label, argv, the server's environment, whether it runs qc_hist)
+    cases = [
+        ("fastq_count generic", ["fastq_count", "-H", str(gen)],
+         {"NGSTPU_NO_FASTPATH": "1"}, True),
+        ("pipeline fast", ["pipeline", "-i", str(WORK / "comp.fq"), "-o", "o",
+                           *trim], {}, False),
+        ("pipeline generic", ["pipeline", "-i", str(gen), "-o", "o", *trim],
+         {}, True),
+        ("fastqc SE", ["fastqc", "qc", str(tiles)], {}, True),
+        ("bam2depth -W small", ["bam2depth", "-W", "-o", "o",
+                                str(WORK / "small.bam")], {}, False)]
+
+    def cli_env(extra: dict) -> dict:
+        set_env({**SERVER_ENV, **extra})
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+        return env
+
+    sock_dir = tempfile.mkdtemp(prefix="ngt")
+    sock = os.path.join(sock_dir, "s")
+    check(len(sock) < 100, f"socket path too long for AF_UNIX: {sock}")
+    cli_env({})
+    thread = threading.Thread(target=server.serve, args=(sock, "cuda"),
+                              daemon=True)
+    thread.start()
+    launches, refs = 0, {}
+    try:
+        print(f"serve() in a thread: listening after "
+              f"{wait_for(sock, thread.is_alive, 120):.3f}s")
+        hist_cuda.LAUNCHES = 0  # the server's path: counted from here
+        for label, argv, extra, kernel in cases:
+            env = cli_env(extra)
+            slug = label.replace(" ", "_").replace("-", "")
+            runs = [("cold", env)] * 3 \
+                + [("warm", {**env, "NGSTPU_SERVER": sock})] * 4
+            walls, deltas, reserved = {"cold": [], "warm": []}, [], []
+            for k, (kind, run_env) in enumerate(runs):
+                out = d / f"{slug}_{k}"
+                before = hist_cuda.LAUNCHES
+                wall, r = cli_run(argv, out, run_env)
+                walls[kind].append(wall)
+                if kind == "warm":
+                    deltas.append(hist_cuda.LAUNCHES - before)
+                    reserved.append(torch.cuda.memory_reserved())
+                if k == 0:
+                    refs[label] = (out, r.stdout)
+                    check(bool(r.stdout) or any(out.iterdir()),
+                          f"{label}: no output")
+                    continue
+                check(same_dir(out, refs[label][0])
+                      and r.stdout == refs[label][1],
+                      f"{label}: {kind} run {k} differs from the first cold "
+                      f"run")
+                shutil.rmtree(out)
+            check(all(deltas) if kernel else not any(deltas),
+                  f"{label}: qc_hist launches through the server {deltas}")
+            launches += sum(deltas)
+            cold, warm = walls["cold"], walls["warm"]
+            print(f"served {label}: cold "
+                  f"{' / '.join(f'{w:.3f}' for w in cold)} s (median {statistics.median(cold):.3f} s); warm first "
+                  f"{warm[0]:.3f} s, then "
+                  f"{' / '.join(f'{w:.3f}' for w in warm[1:])} s (median "
+                  f"{statistics.median(warm[1:]):.3f} s); qc_hist launches "
+                  f"through the server {deltas}; memory reserved after each "
+                  f"request {reserved} bytes; files and stdout of 2 cold "
+                  f"and 4 warm runs byte-identical to the first cold run "
+                  f"[{card}]")
+
+        # a request that runs out of device memory: rc 1, and the server
+        # answers the next one
+        label, argv, extra, _ = cases[0]
+        env = {**cli_env(extra), "NGSTPU_SERVER": sock}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(0).total_memory
+        torch.cuda.set_per_process_memory_fraction((16 << 20) / total)
+        try:
+            _, r = cli_run(argv, d / "oom", env, rc=1)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        oom = [ln for ln in r.stderr.decode().splitlines()
+               if "OutOfMemoryError" in ln]
+        check(bool(oom), f"the out-of-memory request: "
+                         f"{r.stderr.decode()[-2000:]}")
+        check(sock_op(sock, "ping") == {"rc": 0}, "no answer after the OOM")
+        wall, r = cli_run(argv, d / "after_oom", env)
+        check(r.stdout == refs[label][1], "the request after the OOM differs")
+        print(f"served {label} with the card's memory capped at 16 MB: rc 1 "
+              f"({oom[0][:160]}); the next request rc 0 in {wall:.3f}s, "
+              f"stdout equal [{card}]")
+
+        # serve as a process of its own: start, one request, shutdown
+        sock2 = os.path.join(sock_dir, "p")
+        env = cli_env(extra)
+        log = d / "serve.log"
+        with open(log, "wb") as f:
+            t0 = time.monotonic()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "ngstpu_torch.tools.cli", "serve",
+                 "--socket", sock2], cwd=d, env=env,
+                stdout=subprocess.DEVNULL, stderr=f)
+        try:
+            up = wait_for(sock2, lambda: proc.poll() is None, 300)
+            wall, r = cli_run(argv, d / "proc",
+                              {**env, "NGSTPU_SERVER": sock2})
+            check(r.stdout == refs[label][1],
+                  "serve as a process: stdout differs from the cold run")
+            check(sock_op(sock2, "shutdown") == {"rc": 0},
+                  "serve as a process: no answer to shutdown")
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(rc == 0, f"serve as a process exited {rc}: {log.read_text()}")
+        warm_line = [ln for ln in log.read_text().splitlines()
+                     if "warm-up" in ln]
+        print(f"serve as a process: listening after {up:.3f}s "
+              f"({warm_line[0] if warm_line else 'no warm-up line'}); "
+              f"{label} through it {wall:.3f}s, stdout equal; shutdown, exit "
+              f"code 0 [{card}]")
+    finally:
+        if thread.is_alive():
+            sock_op(sock, "shutdown")
+            thread.join(timeout=120)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    check(not thread.is_alive(), "the server thread did not stop")
+
+    # one traced local run: the trace must name the kernel
+    label, argv, extra, _ = cases[2]
+    trace = d / "trace"
+    env = {**cli_env(extra), "NGSTPU_TRACE": str(trace)}
+    wall, r = cli_run(argv, d / "traced", env)
+    check(same_dir(d / "traced", refs[label][0]),
+          "the traced pipeline's outputs differ")
+    files = list(trace.glob("pipeline.*.pt.trace.json"))
+    check(len(files) == 1, f"NGSTPU_TRACE wrote {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    hist = [e for e in events if "qc_hist_kernel" in e.get("name", "")]
+    check(bool(hist), "the trace names no qc_hist kernel")
+    print(f"NGSTPU_TRACE {label}: wall {wall:.3f}s, outputs equal to the "
+          f"cold run, trace {files[0].stat().st_size} bytes with "
+          f"{len(events)} events, qc_hist_kernel x{len(hist)} "
+          f"({sum(e.get('dur', 0) for e in hist):.1f} us) [{card}]")
+    set_env(SERVER_ENV)
+    shutil.rmtree(d)
+    return launches
+
+
+# one bwa-mem-sized batch (bwa mem's -K chunk of about 10 Mbp, as 150 bp
+# reads); sw_score_batch and sw_align_batch over a mate-rescue window,
+# sw_extend_batch over qlen + w
+ALIGN_PAIRS, ALIGN_QLEN, ALIGN_WINDOW, ALIGN_W = 65536, 150, 512, 100
+ALIGN_CPU_PAIRS, ALIGN_ORACLE_PAIRS, ALIGN_MINSC = 4096, 32, 20
+# an H100 SXM's INT32 rate: NVIDIA's 67 TFLOP/s FP32 (non-tensor) peak
+# over 2 for the fused multiply-add and over 2 again for the SM's 64 INT32
+# lanes against its 128 FP32 lanes (NVIDIA's Hopper white paper)
+INT32_OPS_PER_S = 16.75e12
+# integer operations of one scalar Gotoh cell: the substitution score
+# (compare, select, add), H as the max of four terms (3), max(H - q - r,
+# 0) (2), the E and F updates (2 each) and the running max (1)
+CELL_OPS = 13
+
+
+def align_targets(rng, q: np.ndarray, Lt: int, offset: bool) -> np.ndarray:
+    """Targets [B, Lt] for base codes q [B, Lq] (0..3): random bases,
+    where the first half hold their query (2% substitutions; 1-3 bp
+    indels in 5% of them) at a random offset, or at offset 0 when not
+    `offset` (an extension starts at the seed)."""
+    B, Lq = q.shape
+    t = rng.integers(0, 4, (B, Lt), dtype=np.uint8)
+    R = B // 2
+    m = q[:R].copy()
+    sub = rng.random((R, Lq)) < 0.02
+    m[sub] = (m[sub] + rng.integers(1, 4, int(sub.sum()), dtype=np.uint8)) % 4
+    off = (rng.integers(0, Lt - Lq + 1, R) if offset
+           else np.zeros(R, np.int64))
+    t[np.arange(R)[:, None], off[:, None] + np.arange(Lq)] = m
+    for i in np.nonzero(rng.random(R) < 0.05)[0]:
+        pos, n = int(rng.integers(10, Lq - 10)), int(rng.integers(1, 4))
+        if rng.random() < 0.5:
+            row = np.concatenate([m[i, :pos], rng.integers(0, 4, n, np.uint8),
+                                  m[i, pos:]])
+        else:
+            row = np.concatenate([m[i, :pos], m[i, pos + n:],
+                                  rng.integers(0, 4, n, np.uint8)])
+        seg = row[:Lt - off[i]]
+        t[i, off[i]:off[i] + len(seg)] = seg
+    return t
+
+
+def phase_align(card: str) -> dict:
+    """ops/align.py on one bwa-mem-sized batch on the card: each function
+    timed by CUDA events (warm), its kernel launches per call from the
+    profiler, GCUPS (B * Lq * Lt over the time) and its bound; the first
+    4,096 pairs held exactly against a CPU run of the same function, and
+    32 pairs against the scalar oracles."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ngstpu_torch.ops import align
+    from ngstpu_torch.tools.profile_pipeline import device_ops
+
+    B, Lq = ALIGN_PAIRS, ALIGN_QLEN
+    R = B // 2
+    rng = np.random.default_rng(2026)
+    t0 = time.monotonic()
+    codes = rng.integers(0, 4, (B, Lq), dtype=np.uint8)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    q = acgt[codes]
+    t512 = acgt[align_targets(rng, codes, ALIGN_WINDOW, True)]
+    t250 = acgt[align_targets(rng, codes, Lq + ALIGN_W, False)]
+    h0 = rng.integers(20, 61, B).astype(np.int32)
+    qlens = np.full(B, Lq, np.int32)
+    print(f"align inputs: {B} pairs of {Lq} bp queries, targets of "
+          f"{ALIGN_WINDOW} and {Lq + ALIGN_W} bp, made in "
+          f"{time.monotonic() - t0:.2f}s")
+    host = {"q": q, "qlens": qlens, "t512": t512,
+            "tlens512": np.full(B, ALIGN_WINDOW, np.int32), "t250": t250,
+            "tlens250": np.full(B, Lq + ALIGN_W, np.int32), "h0": h0}
+    gpu = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    cpu = {k: torch.from_numpy(v[:ALIGN_CPU_PAIRS]) for k, v in host.items()}
+    cells = torch.zeros(B, dtype=torch.int64, device="cuda")
+
+    def score(a, cells=None):
+        return {"score": align.sw_score_batch(a["q"], a["qlens"], a["t512"],
+                                              a["tlens512"])}
+
+    def local(a, cells=None):
+        return align.sw_align_batch(a["q"], a["qlens"], a["t512"],
+                                    a["tlens512"])
+
+    def extend(a, cells=None):
+        return dict(zip(("score", "qle", "tle"), align.sw_extend_batch(
+            a["q"], a["qlens"], a["t250"], a["tlens250"], a["h0"], w=ALIGN_W,
+            cells=cells)))
+
+    # name: (target width, the call as a dict of outputs, what it reads)
+    specs = {"sw_score_batch": (ALIGN_WINDOW, score, ("q", "qlens", "t512",
+                                                      "tlens512")),
+             "sw_align_batch": (ALIGN_WINDOW, local, ("q", "qlens", "t512",
+                                                      "tlens512")),
+             "sw_extend_batch": (Lq + ALIGN_W, extend,
+                                 ("q", "qlens", "t250", "tlens250", "h0"))}
+    res, outs = {}, {}
+    for name, (Lt, fn, reads) in specs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(gpu, cells)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = cuda_ms(lambda: fn(gpu), 3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(gpu)
+            torch.cuda.synchronize()
+        _, ops = device_ops(prof)
+        copies = sum(c for n, (_, c) in ops.items()
+                     if n.startswith(("Memcpy", "Memset")))
+        launches = sum(c for _, c in ops.values()) - copies
+        cpu_cells = torch.zeros(ALIGN_CPU_PAIRS, dtype=torch.int64)
+        t0 = time.monotonic()
+        ref = fn(cpu, cpu_cells)
+        cpu_s = time.monotonic() - t0
+        for key, want in ref.items():
+            got = out[key][:ALIGN_CPU_PAIRS].cpu()
+            check(got.dtype == want.dtype == torch.int32
+                  and torch.equal(got, want),
+                  f"{name} {key}: the card differs from the CPU on the first "
+                  f"{ALIGN_CPU_PAIRS} pairs")
+        if name == "sw_extend_batch":  # the band's cells, data-dependent
+            check(torch.equal(cells[:ALIGN_CPU_PAIRS].cpu(), cpu_cells),
+                  f"{name}: the card's band cells differ from the CPU's")
+            n_cells = int(cells.sum())
+        else:
+            n_cells = int((host["qlens"].astype(np.int64)
+                           * host[reads[-1]]).sum())
+        io_bytes = sum(host[k].nbytes for k in reads) \
+            + sum(v.numel() * v.element_size() for v in out.values())
+        by_ops = CELL_OPS * n_cells / INT32_OPS_PER_S * 1e3
+        by_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
+        bound = max(by_ops, by_bytes)
+        gcups = B * Lq * Lt / (ms / 1e3) / 1e9
+        res[name] = dict(ms=ms, gcups=gcups, launches=launches,
+                         bound_ms=bound,
+                         bound_by="operations" if by_ops >= by_bytes
+                         else "bytes", share=bound / ms)
+        outs[name] = {k: v.cpu().numpy() for k, v in out.items()}
+        print(f"align {name} (B={B}, Lq={Lq}, Lt={Lt}): card {ms:.3f} ms per "
+              f"call, {gcups:.3f} GCUPS (B*Lq*Lt over the time); {launches} "
+              f"kernel launches and {copies} copies per call (profiler); "
+              f"bound {bound:.4f} ms by {res[name]['bound_by']} ({n_cells} "
+              f"cells x {CELL_OPS} int32 ops at {INT32_OPS_PER_S:.4g}/s: "
+              f"{by_ops:.4f} ms; {io_bytes} bytes at {HBM_BYTES_PER_S:.3g} "
+              f"B/s: {by_bytes:.4f} ms), share {bound / ms:.5f}; peak device "
+              f"memory {peak} bytes; the first {ALIGN_CPU_PAIRS} pairs equal "
+              f"to a CPU run ({cpu_s:.2f}s) [{card}]")
+        del out, ref
+        torch.cuda.empty_cache()
+
+    # the scalar oracles on 16 related and 16 random pairs
+    t0 = time.monotonic()
+    pairs = list(range(ALIGN_ORACLE_PAIRS // 2)) + list(
+        range(R, R + ALIGN_ORACLE_PAIRS // 2))
+    s = outs["sw_align_batch"]
+    score2, te2 = align.kswr_second_best(
+        s["row_max"][pairs], s["score"][pairs], s["te"][pairs], ALIGN_MINSC, 1)
+    for n, i in enumerate(pairs):
+        qb, tb = bytes(q[i]), bytes(t512[i])
+        check(align.sw_score_numpy(qb, tb)
+              == outs["sw_score_batch"]["score"][i],
+              f"sw_score_batch pair {i} != sw_score_numpy")
+        ref = align.ksw_align_scalar(qb, tb, minsc=ALIGN_MINSC)
+        check((ref["score"], ref["te"], ref["qe"], ref["score2"], ref["te2"])
+              == (s["score"][i], s["te"][i], s["qe"][i], score2[n], te2[n])
+              and np.array_equal(ref["row_max"], s["row_max"][i]),
+              f"sw_align_batch pair {i} != ksw_align_scalar")
+        e = outs["sw_extend_batch"]
+        check(align.ksw_extend_scalar(qb, bytes(t250[i]), int(h0[i]),
+                                      w=ALIGN_W)
+              == (e["score"][i], e["qle"][i], e["tle"][i]),
+              f"sw_extend_batch pair {i} != ksw_extend_scalar")
+    related = outs["sw_align_batch"]["score"][:R]
+    print(f"align: {len(pairs)} pairs equal to the scalar oracles "
+          f"(sw_score_numpy, ksw_align_scalar with second best at minsc "
+          f"{ALIGN_MINSC}, ksw_extend_scalar) in "
+          f"{time.monotonic() - t0:.2f}s; related pairs' mean score "
+          f"{related.mean():.1f}, random pairs' "
+          f"{outs['sw_align_batch']['score'][R:].mean():.1f}")
+    return res
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -1220,10 +1647,16 @@ def main(argv: list[str] | None = None) -> int:
     paths["fastq_count_kthread"] = timed("kthread", phase_kthread, card)
     timed("host tools", phase_host_tools)
     timed("bam", phase_bam, card)
+    paths["server"] = timed("server", phase_server, card)
+    align = timed("align", phase_align, card)
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"phase walls (s): {walls}")
     print(f"qc_hist launches by path: {paths}")
     check(all(paths.values()), f"a path never launched qc_hist: {paths}")
+    print("align (torch ops, no hand kernel): " + "; ".join(
+        f"{name} {r['ms']:.3f} ms, {r['gcups']:.3f} GCUPS, {r['launches']} "
+        f"launches, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, share "
+        f"{r['share']:.5f}" for name, r in align.items()) + f" [{card}]")
 
     main_shape = hist[MAIN_SHAPE]
     kernels = [{"name": "qc_hist", "route": "cuda",

@@ -1,17 +1,26 @@
 """`ngstpu-torch` CLI: the port's subcommands, with ngstpu's flags and outputs.
 
     python -m ngstpu_torch.tools.cli [--device DEV] <tool> [args...]
+    python -m ngstpu_torch.tools.cli [--device DEV] serve [--socket PATH]
 
 DEV defaults to ``cuda``; without a CUDA device the run fails rather than
 falling back to the CPU. ``--device cpu`` runs the plain PyTorch versions.
 The tools of HOST_ONLY have no device code: they are copies of ngstpu's
 host tools, called without a device.
+
+With NGSTPU_SERVER=<socket> a tool call goes to the warm server there
+(tools/server.py), which runs it on its own device and environment; an
+unreachable server means a local run. The routing happens before anything
+imports torch. NGSTPU_TRACE=<dir> profiles a local run with
+torch.profiler and writes a Chrome trace file into <dir>.
 """
 
 from __future__ import annotations
 
 import importlib
+import os
 import sys
+import time
 import zlib
 
 TOOLS = {
@@ -47,7 +56,51 @@ def _usage() -> int:
                      "tools:\n")
     for name in TOOLS:
         sys.stderr.write(f"  {name}\n")
+    sys.stderr.write("  serve          (warm-process server; route calls "
+                     "with NGSTPU_SERVER=<socket>)\n")
     return 1
+
+
+def run(name: str, argv: list[str], dev) -> int:
+    """Tool `name`'s main on `dev` (none for HOST_ONLY tools), with a
+    FileNotFoundError, malformed input or a closed pipe turned into an
+    exit code and a message, as the reference tools fail."""
+    mod = importlib.import_module(TOOLS[name])
+    try:
+        if name in HOST_ONLY:
+            return mod.main(argv) or 0
+        return mod.main(argv, device=dev) or 0
+    except FileNotFoundError as e:
+        sys.stderr.write(f"ngstpu-torch {name}: {e}\n")
+        return 1
+    except (ValueError, EOFError, zlib.error) as e:
+        # malformed input (bad FASTQ record structure, bad BAM/BGZF magic,
+        # truncated gzip streams) fails cleanly like a CLI, not with a
+        # traceback
+        sys.stderr.write(f"ngstpu-torch {name}: invalid input: {e}\n")
+        return 1
+    except BrokenPipeError:
+        return 0
+
+
+def _traced(trace_dir: str, name: str, argv: list[str], dev) -> int:
+    """run() under torch.profiler (CPU activity, and the card's on CUDA);
+    the Chrome trace goes to <trace_dir>/<tool>.<pid>.<ns>.pt.trace.json,
+    the port's counterpart of ngstpu's jax.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    try:
+        with prof:
+            return run(name, argv, dev)
+    finally:
+        stamp = f"{os.getpid()}.{time.time_ns()}"
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"{name}.{stamp}.pt.trace.json"))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -60,28 +113,29 @@ def main(argv: list[str] | None = None) -> int:
     if not argv or argv[0] in ("-h", "--help", "help"):
         return _usage()
     name = argv[0]
+    if name == "serve":
+        from .server import main as serve_main
+
+        return serve_main(argv[1:], device)
     if name not in TOOLS:
         sys.stderr.write(f"ngstpu-torch: unknown tool '{name}'\n")
         return 2
+    server_sock = os.environ.get("NGSTPU_SERVER")
+    if server_sock:
+        from .server import call_server
+
+        rc = call_server(server_sock, name, argv[1:])
+        if rc is not None:
+            return rc
+        sys.stderr.write("ngstpu-torch: server unreachable, running "
+                         "locally\n")
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)  # raises without the requested device
-    mod = importlib.import_module(TOOLS[name])
-    try:
-        if name in HOST_ONLY:
-            return mod.main(argv[1:]) or 0
-        return mod.main(argv[1:], device=dev) or 0
-    except FileNotFoundError as e:
-        sys.stderr.write(f"ngstpu-torch {name}: {e}\n")
-        return 1
-    except (ValueError, EOFError, zlib.error) as e:
-        # malformed input (bad FASTQ record structure, bad BAM/BGZF magic,
-        # truncated gzip streams) fails cleanly like a CLI, not with a
-        # traceback
-        sys.stderr.write(f"ngstpu-torch {name}: invalid input: {e}\n")
-        return 1
-    except BrokenPipeError:
-        return 0
+    trace_dir = os.environ.get("NGSTPU_TRACE")
+    if trace_dir:
+        return _traced(trace_dir, name, argv[1:], dev)
+    return run(name, argv[1:], dev)
 
 
 if __name__ == "__main__":

@@ -82,6 +82,23 @@ def _shm_init() -> str:
         return ""
 
 
+def _headroom(d: str) -> int:
+    """Free bytes of the pool's filesystem less a 256 MB margin."""
+    vfs = os.statvfs(d)
+    return vfs.f_bavail * vfs.f_frsize - (256 << 20)
+
+
+def _reserve(fd: int, size: int) -> None:
+    """Back the first `size` bytes of fd with pages now: a tmpfs file
+    grown by ftruncate is sparse, and a hole touched after the filesystem
+    fills SIGBUSes the process; posix_fallocate fails with ENOSPC
+    instead. Where the call is missing, ftruncate alone sets the size."""
+    if hasattr(os, "posix_fallocate"):
+        os.posix_fallocate(fd, 0, size)
+    elif os.fstat(fd).st_size < size:
+        os.ftruncate(fd, size)
+
+
 def _shm_used(d: str) -> int:
     try:
         with os.scandir(d) as it:
@@ -115,11 +132,9 @@ def _shm_map(name: str, cap: int) -> tuple[mmap.mmap, bool] | None:
             # free, and an oversized request must not evict warm siblings
             if _shm_used(_shm_dir) - cur + cap > _SHM_BUDGET:
                 return None
-            # ftruncate is sparse and tmpfs pages materialize on first
-            # touch — past-capacity touches SIGBUS the process, so gate
-            # on actual free space (with margin) instead of crashing
-            vfs = os.statvfs(_shm_dir)
-            if cap - cur > vfs.f_bavail * vfs.f_frsize - (256 << 20):
+            # gate on actual free space (with margin): the pages are
+            # reserved below, and a full /dev/shm starves everything else
+            if cap - cur > _headroom(_shm_dir):
                 return None
             if cur:
                 # grow = fresh pages under anonymous maps; unlink the old
@@ -133,9 +148,25 @@ def _shm_map(name: str, cap: int) -> tuple[mmap.mmap, bool] | None:
     except OSError:
         return None
     try:
-        if os.fstat(fd).st_size < cap:
-            os.ftruncate(fd, cap)
-            return mmap.mmap(fd, cap), True
+        st = os.fstat(fd)
+        if st.st_size < cap:
+            try:
+                _reserve(fd, cap)
+                return mmap.mmap(fd, cap), True
+            except (OSError, ValueError):
+                # leave no enlarged file behind: it would count against
+                # the budget and send every later run to anonymous maps
+                if st.st_size:
+                    os.ftruncate(fd, st.st_size)
+                else:
+                    os.unlink(path)
+                raise
+        # re-map: the file's holes in [0, cap) get pages too, so they
+        # must fit; it holds at least its blocks less those past cap
+        held = max(st.st_blocks * 512 - (st.st_size - cap), 0)
+        if cap - min(held, cap) > _headroom(_shm_dir):
+            return None
+        _reserve(fd, cap)
         return mmap.mmap(fd, cap), False
     except (OSError, ValueError):
         return None

@@ -36,4 +36,4 @@ def check_mesh(mesh_n: int, device: torch.device) -> None:
     if n > 1:
         raise NotImplementedError(
             f"-m {mesh_n}: sharding over {n} devices is not ported yet "
-            "(ROADMAP queue 1 item 10, parallel/); run with -m 1")
+            "(ROADMAP queue 1, the parallel/ item); run with -m 1")

@@ -242,6 +242,121 @@ def test_bufpool_default_directory(monkeypatch):
     assert t_bufpool._pool is not j_bufpool._pool
 
 
+@pytest.fixture
+def pools(tmp_path, monkeypatch):
+    """Both packages' pools, each on an empty directory of its own under
+    tmp_path (taken as already owned: no flock) and with no buffers."""
+    mods = {"t": t_bufpool, "j": j_bufpool}
+    for side, mod in mods.items():
+        (tmp_path / side).mkdir()
+        monkeypatch.setattr(mod, "_shm_dir", str(tmp_path / side))
+        monkeypatch.setattr(mod, "_pool", {})
+    yield mods
+    for mod in mods.values():
+        for name in list(mod._pool):
+            mod.release(name)
+
+
+def _shm_calls(monkeypatch, mod) -> list:
+    """Records what each _shm_map call of `mod` returned: (length, fresh)
+    of the mapping, or None for the fallback to anonymous memory."""
+    calls, real = [], mod._shm_map
+
+    def spy(name, cap):
+        r = real(name, cap)
+        calls.append(None if r is None else (len(r[0]), r[1]))
+        return r
+
+    monkeypatch.setattr(mod, "_shm_map", spy)
+    return calls
+
+
+def test_bufpool_success_paths(pools, monkeypatch):
+    """Growth from nothing, a re-map of a larger file, regrowth and a
+    second name: the same mappings, fresh flags, files and views."""
+    seen = {}
+    for side, mod in pools.items():
+        calls = _shm_calls(monkeypatch, mod)
+        a = mod.get_buffer("a", 3 << 20)
+        a[:] = 1
+        mod.release("a")
+        b = mod.get_buffer("a", 2 << 20, np.uint32)
+        c = mod.get_buffer("a", 20 << 20)
+        d = mod.get_matrix("b", 1000, 50, np.int64)
+        files = {n: os.path.getsize(os.path.join(mod._shm_dir, n))
+                 for n in sorted(os.listdir(mod._shm_dir))}
+        seen[side] = (calls, files, [(x.dtype, x.shape) for x in (a, b, c, d)],
+                      int(b[0]))
+        del a, b, c, d
+    assert seen["t"] == seen["j"]
+    assert seen["t"][0] == [(3 << 20, True), (2 << 20, False),
+                            (24 << 20, True), (2 << 20, True)]
+    assert seen["t"][3] == 0x01010101  # the re-map kept the pages
+
+
+@pytest.mark.parametrize("fault", ["mmap", "reserve"])
+def test_bufpool_failed_growth_leaves_no_file(pools, monkeypatch, fault):
+    """A growth whose mmap (or page reservation) fails leaves no enlarged
+    file behind, so the budget it would have taken still admits the next
+    buffer into the pool."""
+    import errno
+    import mmap
+
+    mod = pools["t"]
+    monkeypatch.setattr(mod, "_SHM_BUDGET", 2 << 20)  # one 2 MB file
+    calls = _shm_calls(monkeypatch, mod)
+    real = {"mmap": mmap.mmap, "reserve": os.posix_fallocate}
+
+    def fail(*a, **k):
+        if fault == "mmap" and a[0] == -1:
+            return real["mmap"](*a, **k)  # the anonymous fallback
+        raise OSError(errno.ENOSPC, f"injected {fault} failure")
+
+    if fault == "mmap":
+        monkeypatch.setattr(mmap, "mmap", fail)
+    else:
+        monkeypatch.setattr(os, "posix_fallocate", fail)
+    x = mod.get_buffer("x", 1 << 20)
+    x[:] = 3
+    assert calls == [None] and os.listdir(mod._shm_dir) == []
+    monkeypatch.setattr(mmap, "mmap", real["mmap"])
+    monkeypatch.setattr(os, "posix_fallocate", real["reserve"])
+    y = mod.get_buffer("y", 1 << 20)
+    y[:4] = 7
+    assert calls == [None, (2 << 20, True)]
+    path = os.path.join(mod._shm_dir, "y.buf")
+    with open(path, "rb") as f:
+        assert f.read(5) == b"\x07" * 4 + b"\x00"  # the shared file's pages
+    assert os.path.getsize(path) == 2 << 20
+    del x, y
+
+
+def test_bufpool_remap_checks_headroom(pools, monkeypatch):
+    """A re-map reserves the file's holes, so a sparse file is re-mapped
+    only while they fit; a file whose pages are all held always is."""
+    mod = pools["t"]
+    monkeypatch.setattr(mod, "_headroom", lambda d: 1 << 20)
+    calls = _shm_calls(monkeypatch, mod)
+
+    def held(fd, n):
+        os.posix_fallocate(fd, 0, n)
+
+    for name, reserve in (("sparse", os.ftruncate), ("held", held)):
+        fd = os.open(os.path.join(mod._shm_dir, f"{name}.buf"),
+                     os.O_RDWR | os.O_CREAT, 0o600)
+        try:
+            reserve(fd, 8 << 20)
+        finally:
+            os.close(fd)
+        mod.get_buffer(name, 8 << 20)[:] = 5
+    assert calls == [None, (8 << 20, False)]
+    for name, first in (("sparse", b"\x00"), ("held", b"\x05")):
+        path = os.path.join(mod._shm_dir, f"{name}.buf")
+        assert os.path.getsize(path) == 8 << 20
+        with open(path, "rb") as f:
+            assert f.read(1) == first
+
+
 def test_emitters_host_half(fq):
     """The partition bounds and the native host sort's groups."""
     bucket = np.random.default_rng(2).integers(0, 1000, 256)

@@ -115,6 +115,43 @@ run("bam_sliding_count", "-w", "5000", "-r", "c1:1-10000", "-o", f"{d}/sc",
     bam, out=f"{d}/sc.txt")
 run("bamSplitChr", "-o", f"{d}/sp", bam, out=f"{d}/sp_c2.bam")
 assert ran == set(cli.TOOLS), set(cli.TOOLS) - ran
+# the alignment functions and the warm server (start, a request, shutdown)
+import contextlib, io, json, socket, tempfile, threading, time
+
+import torch
+
+from ngstpu_torch.ops import align
+from ngstpu_torch.tools import server
+
+g = torch.Generator().manual_seed(8)
+q = torch.randint(65, 69, (8, 12), dtype=torch.uint8, generator=g)
+t = torch.randint(65, 69, (8, 16), dtype=torch.uint8, generator=g)
+ql, tl = torch.full((8,), 12, dtype=torch.int32), torch.full(
+    (8,), 16, dtype=torch.int32)
+assert align.sw_score_batch(q, ql, t, tl).shape == (8,)
+assert align.sw_align_batch(q, ql, t, tl)["row_max"].shape == (8, 16)
+h0 = torch.full((8,), 10, dtype=torch.int32)
+assert (align.sw_extend_batch(q, ql, t, tl, h0)[0] >= 10).all()
+sock = tempfile.mkdtemp(dir="/tmp", prefix="ngt") + "/s"
+th = threading.Thread(target=server.serve, args=(sock, "cpu"), daemon=True)
+th.start()
+deadline = time.monotonic() + 60
+while not os.path.exists(sock):
+    assert th.is_alive() and time.monotonic() < deadline
+    time.sleep(0.02)
+out = io.TextIOWrapper(io.BytesIO())
+with contextlib.redirect_stdout(out):
+    assert server.call_server(sock, "fastq_count", [f"{d}/n.fq"],
+                              timeout=60) == 0
+assert out.buffer.getvalue().startswith(f"{d}/n.fq\t200\t".encode())
+with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+    s.settimeout(30)
+    s.connect(sock)
+    s.sendall(b'{"op": "shutdown"}\n')
+    assert json.loads(s.makefile("rb").readline()) == {"rc": 0}
+th.join(timeout=30)
+assert not th.is_alive()
+os.rmdir(os.path.dirname(sock))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("NOJAX-OK")

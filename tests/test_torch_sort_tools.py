@@ -182,7 +182,7 @@ def test_check_mesh_raises_above_one_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     check_mesh(4, cuda)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="the parallel/ item"):
         check_mesh(4, cuda)
     check_mesh(4, torch.device("cpu"))
 
