@@ -19,10 +19,12 @@ host-placement run on the CPU. Then it drives the sort-engine tools at the
 fast and generic routes and the default placement), gzfastq_uniq PE,
 gzfastq_uniqQ, gzfastq_uniq_sort, ordered_uniq and the 2-bit codec, each
 byte-compared with a run of the port on the CPU. Then fastqc SE on one
-lane file (10M x 100 bp, Illumina tile names) and PE on 2,097,152 pairs,
-forced to the card and in the default placement, against a host-placement
-run on the CPU (every TSV and PNG); fastq_count_kthread -H -L -t 2 on the
-generic route, cuda against cpu; and each host-only tool once. Last, the
+lane file (10M x 100 bp, Illumina tile names) and PE on 1,048,576 pairs,
+forced to the card and in the default placement (every TSV and PNG; PE
+against a host-placement run on the CPU, SE's two runs against each
+other and the lane's first 2,097,152 reads against a host-placement run);
+fastq_count_kthread -H -L -t 2 on the
+generic route, cuda against cpu; and each host-only tool once. Then the
 BAM pileup tools on bench_pileup.py's WGS-shaped BAM (2^23 reads over 24 x
 100 Mbp) and its small genome (2^20 reads over 4 x 5 Mbp), made and
 indexed by the port: bam2depth and bam2wig with the sparse sweep forced
@@ -35,9 +37,15 @@ processes routed to it through NGSTPU_SERVER (fastq_count on the generic
 route, both pipeline routes, fastqc SE and bam2depth -W), each warm run
 byte-compared with and timed against fresh CLI processes; a request that
 runs out of device memory; `serve` as a process; one NGSTPU_TRACE run.
-Last, ops/align.py's batched Smith-Waterman on one bwa-mem-sized batch
+Then ops/align.py's batched Smith-Waterman on one bwa-mem-sized batch
 (65,536 pairs of 150 bp), timed, held against a CPU run and the scalar
-oracles.
+oracles. Last, the parallel layer on four shards of the card: the sharded
+QC step (4 x 262,144 x 128 reads, one qc_hist launch a shard) against
+qc_step on the whole batch on the card and the CPU; the sharded pileup on
+the WGS BAM's first chromosome against one shard and a host bincount; the
+distributed dedup and sort on the 10M-read input against the single-card
+dedup_groups and lex_argsort; the process-group backend on a one-rank
+NCCL group; the dry run; scalebench's one-card row.
 
 Any failed check exits non-zero. The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -65,8 +73,9 @@ SORT_ROWS, SORT_WORDS = 1 << 21, 7
 N_READS, READ_LEN, TRIM = 1 << 21, 100, (0, 50)
 OUTPUTS = (".count.tsv", ".trim.fastq", "_uniq.fq", "_sortKeyUniq.fq")
 BIG_READS = 10_000_000  # bench.py's gzfastq_uniq + gzfastq_sort input
-UNIQQ_READS = 1 << 19
+UNIQQ_READS = 1 << 18
 LANE_READS = 10_000_000  # one lane file of BASELINE config 3's size
+FASTQC_PAIRS = 1 << 20
 
 
 def fail(msg: str) -> None:
@@ -535,7 +544,8 @@ def phase_tools(card: str) -> None:
     At 10M reads: gzfastq_uniq and gzfastq_sort -s/-n on the fast route
     and the generic route with the work on the card, and in the default
     placement. At 2,097,152 reads (pairs): gzfastq_uniq PE, uniq_sort and
-    ordered_uniq; uniqQ at 524,288. The codec on the 10M input."""
+    ordered_uniq; uniqQ at 262,144. The codec on the 10M input, which
+    stays on disk for the parallel phase."""
     from ngstpu_torch.ops import sortengine
     from ngstpu_torch.testing.fixtures import (random_fastq_fast,
                                               random_fastq_pair_fast)
@@ -612,7 +622,7 @@ def phase_tools(card: str) -> None:
         b.unlink()
     print("  2-bit codec: container and decompressed text byte-identical "
           "to the host codec's")
-    big.unlink()
+    # big.fq stays for the parallel phase's distributed dedup and sort
 
     # smaller inputs: PE pairs, and the generic-route tools at the
     # pipeline's size
@@ -706,10 +716,12 @@ def compare_dirs(label: str, runs: list, card: str, reads: int, call,
 def phase_fastqc(card: str) -> int:
     """fastqc SE on one lane file (10M x 100 bp, Illumina names over 96
     tiles, dup_frac 0.3, 8 hot sequences, 1% N calls, adapters in 0.5% of
-    reads) and PE on the tools phase's 2,097,152 pairs renamed the same
+    reads) and PE on 1,048,576 pairs of the tools phase's kind named the same
     way (with N calls and adapters planted), each forced to the card and
-    in the default placement, against the host placement on the CPU.
-    Returns the kernel launches of the card runs."""
+    in the default placement; PE also against the host placement on the
+    CPU, SE's default run against its forced one, and the lane's first
+    2,097,152 reads forced to the card against the host placement on the
+    CPU. Returns the kernel launches of the card runs."""
     from ngstpu_torch.testing.fixtures import (illumina_fastq_fast,
                                               illumina_fastq_pair_fast)
 
@@ -720,23 +732,32 @@ def phase_fastqc(card: str) -> int:
         n_frac=0.01, adapter_frac=0.005))
     pe = [WORK / "lane_1.fq", WORK / "lane_2.fq"]
     for path, data in zip(pe, illumina_fastq_pair_fast(
-            N_READS, READ_LEN, seed=78, n_tiles=96, dup_frac=0.3,
+            FASTQC_PAIRS, READ_LEN, seed=78, n_tiles=96, dup_frac=0.3,
             n_frac=0.01, adapter_frac=0.005)):
         path.write_bytes(data)
+    head = WORK / "lane_head.fq"
+    with open(lane, "rb") as src, open(head, "wb") as dst:
+        dst.writelines(itertools.islice(src, 4 * N_READS))
     print(f"input: {LANE_READS} x {READ_LEN} bp ({lane.stat().st_size} "
-          f"bytes) and {N_READS} pairs, Illumina names over 96 tiles, made "
-          f"in {time.monotonic() - t0:.2f}s")
-    runs = [("host", "cpu", HOST), ("cuda", "cuda", FAST),
-            ("default", "cuda", DEFAULT)]
+          f"bytes), its first {N_READS} reads and {FASTQC_PAIRS} pairs, "
+          f"Illumina names over 96 tiles, made in "
+          f"{time.monotonic() - t0:.2f}s")
+    host, cuda, default = (("host", "cpu", HOST), ("cuda", "cuda", FAST),
+                           ("default", "cuda", DEFAULT))
     launches = 0
-    for label, inputs, reads, expect in (("fastqc SE", [lane], LANE_READS, 18),
-                                         ("fastqc PE", pe, N_READS, 33)):
+    # the whole lane's host run (53-66 s) is left out: the lane's card runs
+    # are held against each other, and its first N_READS reads and PE
+    # against the host
+    for label, inputs, reads, expect, runs in (
+            ("fastqc SE", [lane], LANE_READS, 18, [cuda, default]),
+            ("fastqc SE head", [head], N_READS, 18, [host, cuda]),
+            ("fastqc PE", pe, FASTQC_PAIRS, 33, [host, cuda, default])):
         res = compare_dirs(
             label, runs, card, reads,
             lambda tag, device, env, d: run_tool(
                 "fastqc", [str(d / "qc"), *map(str, inputs)], device, env),
             expect)
-        for tag in ("cuda", "default"):
+        for tag in (t for t in res if t != "host"):
             c = res[tag]["counts"]
             for op in FASTQC_OPS:
                 check(c.get(op, 0) == len(inputs),
@@ -747,36 +768,9 @@ def phase_fastqc(card: str) -> int:
             check(c["sorts"] > 0, f"{label} ({tag}): the duplication dedup "
                                   f"did not sort on the card")
             launches += c["qc_hist"]
-    profile_fastqc(lane, card)
-    for path in (lane, *pe):
+    for path in (lane, head, *pe):
         path.unlink()
     return launches
-
-
-def profile_fastqc(lane: pathlib.Path, card: str) -> None:
-    """One more fastqc SE run on the card under torch.profiler: the
-    device's busy time against the wall, and the device ops that take the
-    most time (the launches of this run are not counted)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from ngstpu_torch.tools.profile_pipeline import TOP, device_ops
-
-    d = WORK / "fastqc_profile"
-    d.mkdir()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        info = run_tool("fastqc", [str(d / "qc"), str(lane)], "cuda", FAST)
-    torch.cuda.synchronize()
-    shutil.rmtree(d)
-    busy, ops = device_ops(prof)
-    print(f"fastqc SE profiled (cuda): wall {info['wall']:.3f}s, device busy "
-          f"{busy:.3f} ms ({100 * busy / 1e3 / info['wall']:.2f}% of wall), "
-          f"{sum(c for _, c in ops.values())} device ops [{card}]")
-    print(f"    stages: {'; '.join(info['timing'])}")
-    for name, (ms, count) in sorted(ops.items(),
-                                    key=lambda kv: -kv[1][0])[:TOP]:
-        print(f"  {ms:10.3f} ms  x{count:<5d} {name[:90]}")
 
 
 def phase_kthread(card: str) -> int:
@@ -958,7 +952,8 @@ def phase_bam(card: str) -> dict:
     engine's negative-start fallback into the sparse route on the card;
     bam_sliding_count with and without -r, bamSplitChr and index. Then one
     more sparse bam2depth on the WGS BAM under torch.profiler. Returns the
-    cuda sweeps of the forced-sparse runs."""
+    first chromosome's pileup events (pos, delta) for the parallel
+    phase."""
     from ngstpu_torch.io.bam import choose_pileup_mode
     from ngstpu_torch.testing.bamfixtures import (encode_record, make_bam,
                                                   random_bam_fast)
@@ -1061,9 +1056,9 @@ def phase_bam(card: str) -> dict:
              card, SMALL_READS, genome)
 
     profile_bam(wgs, card)
-    time_sweep(wgs, card)
+    chr1 = time_sweep(wgs, card)
     print(f"PILEUP cuda sweeps by run: {sweeps}")
-    return sweeps
+    return chr1
 
 
 def sparse_bam2depth(wgs: str, profiler) -> float:
@@ -1094,13 +1089,9 @@ def sparse_bam2depth(wgs: str, profiler) -> float:
 
 
 def profile_bam(wgs: str, card: str) -> None:
-    """Two more sparse bam2depth runs on the WGS BAM: under torch.profiler,
+    """One more sparse bam2depth run on the WGS BAM under torch.profiler:
     the card's busy share of the wall and the sweep's device time per
-    launch (kernels, then copies); under cProfile, the host functions that
-    take the most time (cProfile's own cost inflates that run's wall)."""
-    import cProfile
-    import pstats
-
+    launch (kernels, then copies)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ngstpu_torch.ops.bamops import PILEUP
@@ -1121,18 +1112,9 @@ def profile_bam(wgs: str, card: str) -> None:
     for name, (ms, count) in sorted(ops.items(),
                                     key=lambda kv: -kv[1][0])[:TOP]:
         print(f"  {ms:10.3f} ms  x{count:<5d} {name[:90]}")
-    host = cProfile.Profile()
-    wall = sparse_bam2depth(wgs, host)
-    stats = pstats.Stats(host)
-    print(f"bam2depth WGS sparse under cProfile (cuda): wall {wall:.3f}s; "
-          f"host functions by own time [{card}]")
-    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:2 * TOP]
-    for (path, line, func), (_, calls, own, cum, _) in top:
-        print(f"  own {own:8.3f}s  cum {cum:8.3f}s  x{calls:<8d} "
-              f"{pathlib.Path(path).name}:{line}({func})")
 
 
-def time_sweep(wgs: str, card: str) -> None:
+def time_sweep(wgs: str, card: str) -> tuple[np.ndarray, np.ndarray]:
     """sparse_pileup_sweep alone on the first WGS chromosome's events, on
     the card (CUDA events, warm), with the bound of its I/O: 8 bytes read
     and 9 written per event over the card's memory rate (the sort's own
@@ -1140,7 +1122,7 @@ def time_sweep(wgs: str, card: str) -> None:
     the device verdict (upload, sweep, pull, compaction) against the
     host verdict (the native radix sweep). The card's sweep is held
     against the same function on CPU tensors (compacted rows, exact).
-    PILEUP is not read after these launches."""
+    PILEUP is not read after these launches. Returns the events."""
     import torch
 
     from ngstpu_torch.io.bam import DEF_MASK
@@ -1172,6 +1154,7 @@ def time_sweep(wgs: str, card: str) -> None:
           f"device verdict {min(walls['device']) * 1e3:.3f} ms, host "
           f"verdict (native sweep) {min(walls['host']) * 1e3:.3f} ms "
           f"[{card}]")
+    return pos, delta
 
 
 def cli_run(argv: list[str], cwd: pathlib.Path, env: dict,
@@ -1230,7 +1213,7 @@ def phase_server(card: str) -> int:
     """The warm server: serve() in a thread of this process on the card
     (NGSTPU_LINK=device), and real CLI processes routed to it through
     NGSTPU_SERVER, each case against fresh CLI processes of the same
-    environment (the cold wall, median of 3): fastq_count -H on the
+    environment (the cold wall, median of 2): fastq_count -H on the
     2,097,152 x 100 bp input with N calls on the generic route (the
     qc_hist kernel), pipeline -s 0 -e 50 on both routes, fastqc SE on
     2,097,152 tile-named reads and bam2depth -W on the small genome.
@@ -1296,8 +1279,8 @@ def phase_server(card: str) -> int:
         for label, argv, extra, kernel in cases:
             env = cli_env(extra)
             slug = label.replace(" ", "_").replace("-", "")
-            runs = [("cold", env)] * 3 \
-                + [("warm", {**env, "NGSTPU_SERVER": sock})] * 4
+            runs = [("cold", env)] * 2 \
+                + [("warm", {**env, "NGSTPU_SERVER": sock})] * 3
             walls, deltas, reserved = {"cold": [], "warm": []}, [], []
             for k, (kind, run_env) in enumerate(runs):
                 out = d / f"{slug}_{k}"
@@ -1327,8 +1310,8 @@ def phase_server(card: str) -> int:
                   f"{' / '.join(f'{w:.3f}' for w in warm[1:])} s (median "
                   f"{statistics.median(warm[1:]):.3f} s); qc_hist launches "
                   f"through the server {deltas}; memory reserved after each "
-                  f"request {reserved} bytes; files and stdout of 2 cold "
-                  f"and 4 warm runs byte-identical to the first cold run "
+                  f"request {reserved} bytes; files and stdout of 1 cold "
+                  f"and 3 warm runs byte-identical to the first cold run "
                   f"[{card}]")
 
         # a request that runs out of device memory: rc 1, and the server
@@ -1595,6 +1578,387 @@ def phase_align(card: str) -> dict:
     return res
 
 
+# scalebench's default per chip (262,144 x 128, 118 bp live) on 4 shards of
+# the card; the process-group check's share of the 10M input
+PAR_SHARDS, PAR_READS, PAR_LEN, PAR_LIVE = 4, 262144, 128, 118
+PG_READS = 1 << 19
+
+
+def device_launches(fn) -> tuple[int, float]:
+    """(device kernels, copies and memsets, busy ms) of one call of fn
+    under torch.profiler; the call's qc_hist launches are not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ngstpu_torch.kernels import hist_cuda
+    from ngstpu_torch.tools.profile_pipeline import device_ops
+
+    before = hist_cuda.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hist_cuda.LAUNCHES = before
+    busy, ops = device_ops(prof)
+    return sum(c for _, c in ops.values()), busy
+
+
+def par_qc(card: str) -> int:
+    """sharded_qc_step over PAR_SHARDS shards of the card, counted (the
+    parallel path's qc_hist launches), held bit for bit against qc_step on
+    the whole batch on the card and on the CPU; then timed with its bound
+    and one shard's qc_hist launch. Returns the launches."""
+    import torch
+
+    from ngstpu_torch.kernels import hist_cuda
+    from ngstpu_torch.ops.qcstep import qc_step
+    from ngstpu_torch.parallel import dist, mesh
+
+    n, b, L = PAR_SHARDS, PAR_READS, PAR_LEN
+    B = n * b
+    g = torch.Generator(device="cuda").manual_seed(31)
+    seq = torch.randint(65, 85, (B, L), dtype=torch.uint8, device="cuda",
+                        generator=g)
+    qual = torch.randint(33, 75, (B, L), dtype=torch.uint8, device="cuda",
+                         generator=g)
+    lens = torch.full((B,), PAR_LIVE, dtype=torch.int32, device="cuda")
+    m = mesh.make_mesh(n, devices=[torch.device("cuda", 0)] * n)
+    args = dist.shard_batch_arrays(m, seq, qual, lens)
+    n_valid = [b] * n
+    step = dist.sharded_qc_step(m)
+
+    hist_cuda.LAUNCHES = 0  # the parallel path: counted from here
+    merged, gc, packed = step(*args, n_valid)
+    torch.cuda.synchronize()
+    launches = hist_cuda.LAUNCHES
+    check(launches == n, f"sharded_qc_step launched qc_hist {launches} "
+                         f"times, expected {n}")
+
+    whole = qc_step(seq, qual, lens, B)
+    host = qc_step(seq.cpu(), qual.cpu(), lens.cpu(), B)
+    got = dict(merged, gc=torch.cat(gc), packed=torch.cat(packed))
+    for k, v in whole.items():
+        check(torch.equal(got[k], v) and torch.equal(v.cpu(), host[k]),
+              f"sharded_qc_step {k} differs from qc_step on the whole batch "
+              f"(card or CPU)")
+    check(int(merged["len_hist"].sum()) == B
+          and int(merged["cycle_hist"].sum()) == B * PAR_LIVE,
+          "sharded_qc_step histogram totals")
+    ms = cuda_ms(lambda: step(*args, n_valid), 10)
+    whole_ms = cuda_ms(lambda: qc_step(seq, qual, lens, B), 10)
+    # bytes: live quality bytes (the histograms), every sequence byte (the
+    # pack reads whole rows), lens; written: packed and gc
+    nbytes = B * PAR_LIVE + B * L + 4 * B + B * L // 4 + 4 * B
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    q0, l0 = args[1][0], args[2][0]
+    tq = torch.zeros((L, 128), dtype=torch.int32, device="cuda")
+    tl = torch.zeros(512, dtype=torch.int32, device="cuda")
+    copies = [q0] + [q0.clone() for _ in range(3)]  # 134 MB: past the L2
+    turn = itertools.count()
+    launch_ms = cuda_ms(lambda: hist_cuda.qc_hist_accumulate_(
+        tq, tl, copies[next(turn) % 4], l0, b), 40)
+    launch_bound = hist_cuda.bound_bytes(l0, b, L, L) / HBM_BYTES_PER_S * 1e3
+    n_step, _ = device_launches(lambda: step(*args, n_valid))
+    n_whole, _ = device_launches(lambda: qc_step(seq, qual, lens, B))
+    print(f"parallel QC: sharded_qc_step on {n} shards of the card, {b} x "
+          f"{L} reads each ({PAR_LIVE} bp live, {B} in all): cycle_hist, "
+          f"len_hist, composition, gc and packed equal qc_step on the whole "
+          f"batch on the card and on the CPU; qc_hist launches {launches}; "
+          f"{ms:.4f} ms per step ({B / ms * 1e3:.0f} reads/s, {n_step} "
+          f"device launches), whole-batch qc_step {whole_ms:.4f} ms "
+          f"({n_whole} launches); bound {bound:.4f} ms ({nbytes} bytes, "
+          f"share {bound / ms:.3f}); one shard's qc_hist launch "
+          f"{launch_ms:.4f} ms, bound {launch_bound:.4f} ms [{card}]")
+    del seq, qual, lens, args, merged, gc, packed, whole, copies
+    return launches
+
+
+def par_pileup(card: str, chr1) -> None:
+    """sharded_pileup over PAR_SHARDS shards of the card on the first WGS
+    chromosome's events (each block's +1 start and -1 end), against
+    depth_deltas + cumsum on one shard and a host bincount."""
+    import torch
+
+    from ngstpu_torch.ops.pileup import depth_deltas
+    from ngstpu_torch.parallel import dist, mesh
+
+    pos, delta = chr1
+    check(bool((np.abs(delta) == 1).all()) and int(delta.sum()) == 0,
+          "chr1 events are not one +1 start and one -1 end per block")
+    starts, ends = pos[delta > 0], pos[delta < 0]
+    n, n_pos = PAR_SHARDS, WGS_REFS[0][1]
+    E = len(starts)
+    pad = (-E) % n
+    starts, ends = (np.pad(x, (0, pad)) for x in (starts, ends))
+    valid = np.arange(E + pad) < E
+    m = mesh.make_mesh(n, devices=[torch.device("cuda", 0)] * n)
+    args = dist.shard_batch_arrays(m, starts, ends, valid)
+    fn = dist.sharded_pileup(m, n_pos)
+    depth = fn(*args)
+    one = torch.cumsum(depth_deltas(*(torch.from_numpy(x).cuda() for x in (
+        starts, ends, valid)), n_pos), 0, dtype=torch.int32)[:-1]
+    host = np.cumsum(
+        np.bincount(np.clip(starts[:E], 0, n_pos), minlength=n_pos + 1)
+        - np.bincount(np.clip(ends[:E], 0, n_pos), minlength=n_pos + 1))[:-1]
+    check(torch.equal(depth, one), "sharded_pileup != depth_deltas + cumsum")
+    check(np.array_equal(depth.cpu().numpy(), host),
+          "sharded_pileup != the host bincount")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: fn(*args), 5)
+    peak = torch.cuda.max_memory_allocated()
+    n_launch, _ = device_launches(lambda: fn(*args))
+    nbytes = 9 * (E + pad) + 4 * n_pos  # events read once, depth written
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"parallel pileup: sharded_pileup on {n} shards of the card over "
+          f"chr1's {E} blocks ({2 * E} events), n_pos {n_pos}: equal to "
+          f"depth_deltas + cumsum on one shard and to a host bincount; "
+          f"{ms:.4f} ms per call ({n_launch} device launches), bound "
+          f"{bound:.4f} ms (share {bound / ms:.3f}), peak device memory "
+          f"{peak} [{card}]")
+
+
+def par_inputs():
+    """config 3's 10M x 100 bp input (the tools phase's big.fq) as the
+    -m path of gzfastq_uniq packs it: dna3 words, lengths, quality sums."""
+    import torch
+
+    from ngstpu_torch.io.fastq import read_fastq_file
+    from ngstpu_torch.ops.hostsort import is_dna3_compatible, \
+        sum_quality_host
+    from ngstpu_torch.ops.sortengine import pack_words
+
+    t0 = time.monotonic()
+    big = WORK / "big.fq"
+    batch = read_fastq_file(str(big))
+    check(is_dna3_compatible(batch.seq, None), "big.fq is not plain DNA")
+    words = pack_words(batch.seq, "dna3", torch.device("cuda"))
+    lens = np.ascontiguousarray(batch.lens, np.int32)
+    sumq = sum_quality_host(batch.qual)
+    del batch
+    big.unlink()
+    print(f"parallel inputs: {len(lens)} reads of big.fq packed to "
+          f"{words.shape[1]} dna3 words in {time.monotonic() - t0:.2f}s")
+    return words, lens, sumq
+
+
+def timed_call(fn):
+    """(result, wall seconds, peak device memory reserved) of fn()."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0, torch.cuda.max_memory_reserved()
+
+
+@contextlib.contextmanager
+def dsort_stages(n_rows: int, n: int, pad_factor: float = 2.0):
+    """The stages of one distributed_dedup or distributed_sort call of
+    n_rows rows over n shards, made inside the block: dsort's
+    shard_batch_arrays and _pull are wrapped for it. Yields a dict that
+    gets `seconds` (wall of shard: host arrays to the shards; device: the
+    exchange and sorts; pull: results to the host; host: the merge or
+    cut), `cap` (rows one sender may put in one bucket) and `received`
+    (valid rows per shard, from the last array pulled: the valid mask in
+    both entry points)."""
+    import torch
+
+    from ngstpu_torch.parallel import dsort
+
+    marks = [("", time.monotonic())]
+    pulled, pulled_at = [], [0.0]
+    shard0, pull0 = dsort.shard_batch_arrays, dsort._pull
+
+    def shard(*a):
+        out = shard0(*a)
+        torch.cuda.synchronize()
+        marks.append(("shard", time.monotonic()))
+        return out
+
+    def pull(comm, xs):
+        if not pulled:
+            torch.cuda.synchronize()
+            marks.append(("device", time.monotonic()))
+        pulled.append(pull0(comm, xs))
+        pulled_at[0] = time.monotonic()
+        return pulled[-1]
+
+    rec: dict = {}
+    dsort.shard_batch_arrays, dsort._pull = shard, pull
+    try:
+        yield rec
+    finally:
+        dsort.shard_batch_arrays, dsort._pull = shard0, pull0
+    marks += [("pull", pulled_at[0]), ("host", time.monotonic())]
+    rows = n_rows + (-n_rows) % n
+    rec.update(cap=int(pad_factor * (rows // n) / n) + 8,
+               received=[int(v.sum()) for v in np.split(pulled[-1], n)],
+               seconds={name: t - t0 for (_, t0), (name, t)
+                        in zip(marks, marks[1:])})
+
+
+def stage_ms(ex: dict) -> str:
+    return ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in ex["seconds"].items())
+
+
+def par_dsort(card: str, words, lens, sumq) -> dict:
+    """distributed_dedup and distributed_sort (length first) over
+    PAR_SHARDS shards of the card at config 3's size, held equal to the
+    single-card dedup_groups and lex_argsort. Returns the in-process dedup
+    of the first PG_READS rows for the process-group check."""
+    import torch
+
+    from ngstpu_torch.ops import sortengine as se
+    from ngstpu_torch.parallel import dist, dsort, mesh
+
+    n = PAR_SHARDS
+    B = len(lens)
+    gpu = torch.device("cuda", 0)
+    m = mesh.make_mesh(n, devices=[gpu] * n)
+    g, one_s, one_peak = timed_call(
+        lambda: se.dedup_groups(words, lens, sumq, B, gpu))
+    with dsort_stages(B, n) as ex:
+        res, s, peak = timed_call(
+            lambda: dsort.distributed_dedup(m, words, lens, sumq))
+    keys, klens, counts, rep = res
+    order = np.lexsort(tuple([lens[g["rep"]]] + [
+        words[g["rep"], w] for w in range(words.shape[1] - 1, -1, -1)]))
+    check(np.array_equal(rep, g["rep"][order])
+          and np.array_equal(counts, g["counts"][order])
+          and np.array_equal(keys, words[rep])
+          and np.array_equal(klens, lens[rep]),
+          "distributed_dedup differs from the single-card dedup_groups")
+    # the exchange and per-shard sorts alone (no host merge), profiled
+    sharded = dist.shard_batch_arrays(m, words.view(np.int32), lens,
+                                      sumq.view(np.int32),
+                                      np.arange(B, dtype=np.int32),
+                                      np.ones(B, dtype=bool))
+    fused = dsort.exchange_dedup(m)
+    n_ex, ex_busy = device_launches(lambda: fused(*sharded))
+    del sharded
+    # bound: words, lens and sums read once; keys, lens, counts and reps
+    # of the groups written once
+    W, G = words.shape[1], len(counts)
+    nbytes = B * (4 * W + 8) + G * (4 * W + 20)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"parallel dedup: distributed_dedup on {n} shards of the card, "
+          f"{B} reads: keys, klens, counts and rep equal the single-card "
+          f"dedup_groups ({len(counts)} groups); {s * 1e3:.1f} ms "
+          f"({B / s:.0f} reads/s), peak reserved {peak} bytes; single card "
+          f"{one_s * 1e3:.1f} ms, peak reserved {one_peak}; rows received "
+          f"per shard {ex['received']} of {n * ex['cap']} slots (cap "
+          f"{ex['cap']} per sender); stages {stage_ms(ex)}; exchange_dedup "
+          f"alone: {n_ex} device launches, device busy {ex_busy:.3f} ms; "
+          f"bound {bound:.4f} ms ({nbytes} bytes) [{card}]")
+    perm_one, one_s, one_peak = timed_call(lambda: se.lex_argsort(
+        se.words_tensor(words, gpu), torch.from_numpy(lens).to(gpu),
+        length_first=True).cpu().numpy())
+    with dsort_stages(B, n) as ex:
+        perm, s, peak = timed_call(
+            lambda: dsort.distributed_sort(m, words, lens))
+    check(np.array_equal(perm, perm_one),
+          "distributed_sort differs from the single-card lex_argsort")
+    n_sort, sort_busy = device_launches(
+        lambda: dsort.distributed_sort(m, words, lens))
+    nbytes = B * (4 * W + 4 + 8)  # words and lens read, the perm written
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"parallel sort: distributed_sort (length first) on {n} shards of "
+          f"the card, {B} reads: equal to the single-card lex_argsort; "
+          f"{s * 1e3:.1f} ms ({B / s:.0f} reads/s), peak reserved {peak} "
+          f"bytes; single card {one_s * 1e3:.1f} ms, peak reserved "
+          f"{one_peak}; rows received per shard {ex['received']} of "
+          f"{n * ex['cap']} slots (cap {ex['cap']} per sender); stages "
+          f"{stage_ms(ex)}; {n_sort} device launches, device busy "
+          f"{sort_busy:.3f} ms; bound {bound:.4f} ms ({nbytes} bytes) "
+          f"[{card}]")
+    return dsort.distributed_dedup(m, words[:PG_READS], lens[:PG_READS],
+                                   sumq[:PG_READS])
+
+
+def par_group(card: str, words, lens, sumq, ref) -> None:
+    """The process-group backend on a one-rank NCCL group: allreduce_stats
+    (the identity with one process), sharded_qc_step (psum: all_reduce)
+    and a PG_READS-read distributed_dedup (all_to_all_single, all_gather)
+    through it, held equal to the in-process results."""
+    import torch
+    import torch.distributed as tdist
+
+    from ngstpu_torch.ops.qcstep import qc_step
+    from ngstpu_torch.parallel import dist, dsort, mesh, multihost
+
+    torch.cuda.set_device(0)
+    init = WORK / "nccl_init"  # the group's rendezvous file
+    init.unlink(missing_ok=True)
+    tdist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                             world_size=1)
+    try:
+        m = mesh.make_mesh()
+        check(m.group is not None and m.shape == (1,)
+              and m.devices[0].type == "cuda",
+              f"a one-rank NCCL group made the mesh {m}")
+        stats = {"q": np.arange(512, dtype=np.int64)}
+        check(np.array_equal(multihost.allreduce_stats(stats)["q"],
+                             stats["q"]), "allreduce_stats, one rank")
+        g = torch.Generator(device="cuda").manual_seed(32)
+        seq = torch.randint(65, 85, (PAR_READS, PAR_LEN), dtype=torch.uint8,
+                            device="cuda", generator=g)
+        qual = torch.randint(33, 75, (PAR_READS, PAR_LEN), dtype=torch.uint8,
+                             device="cuda", generator=g)
+        lens_q = torch.full((PAR_READS,), PAR_LIVE, dtype=torch.int32,
+                            device="cuda")
+        merged, _, _ = dist.sharded_qc_step(m)(
+            *dist.shard_batch_arrays(m, seq, qual, lens_q), [PAR_READS])
+        whole = qc_step(seq, qual, lens_q, PAR_READS)
+        for k, v in merged.items():
+            check(torch.equal(v, whole[k]), f"process-group psum of {k}")
+        with dsort_stages(PG_READS, 1) as ex:
+            res, s, peak = timed_call(lambda: dsort.distributed_dedup(
+                m, words[:PG_READS], lens[:PG_READS], sumq[:PG_READS]))
+        for a, b in zip(res, ref):
+            check(np.array_equal(a, b), "process-group distributed_dedup "
+                                        "differs from the in-process one")
+        print(f"process group: one-rank NCCL group ({tdist.get_backend()}); "
+              f"allreduce_stats is the identity; sharded_qc_step's psum "
+              f"(all_reduce) equal to qc_step; distributed_dedup of "
+              f"{PG_READS} reads (all_to_all_single, all_gather) equal to the "
+              f"in-process {PAR_SHARDS}-shard result in {s * 1e3:.1f} ms "
+              f"(stages {stage_ms(ex)}), "
+              f"peak reserved {peak} [{card}]")
+    finally:
+        tdist.destroy_process_group()
+        init.unlink(missing_ok=True)
+
+
+def phase_parallel(card: str, chr1) -> int:
+    """The parallel layer (ngstpu_torch/parallel) on the card: the sharded
+    QC step (the parallel path's qc_hist launches), the sharded pileup on
+    chr1's events, the distributed dedup and sort at config 3's size, the
+    process-group backend on a one-rank NCCL group, the dry run on four
+    shards of the card and scalebench's one-card row. One card measures
+    the structure, not the scaling. Returns the counted launches."""
+    from ngstpu_torch.parallel import dryrun, scalebench
+
+    launches = par_qc(card)
+    par_pileup(card, chr1)
+    words, lens, sumq = par_inputs()
+    ref = par_dsort(card, words, lens, sumq)
+    par_group(card, words, lens, sumq, ref)
+    del words, lens, sumq, ref
+    t0 = time.monotonic()
+    dryrun.dryrun_multichip(PAR_SHARDS, "cuda")
+    print(f"dryrun_multichip({PAR_SHARDS}) on the card: five phases OK in "
+          f"{time.monotonic() - t0:.2f}s")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        scalebench.main([])
+    for line in out.getvalue().splitlines():
+        print(f"scalebench: {line}")
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -1646,9 +2010,10 @@ def main(argv: list[str] | None = None) -> int:
     paths["fastqc"] = timed("fastqc", phase_fastqc, card)
     paths["fastq_count_kthread"] = timed("kthread", phase_kthread, card)
     timed("host tools", phase_host_tools)
-    timed("bam", phase_bam, card)
+    chr1 = timed("bam", phase_bam, card)
     paths["server"] = timed("server", phase_server, card)
     align = timed("align", phase_align, card)
+    paths["parallel"] = timed("parallel", phase_parallel, card, chr1)
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"phase walls (s): {walls}")
     print(f"qc_hist launches by path: {paths}")

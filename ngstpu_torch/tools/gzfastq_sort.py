@@ -11,7 +11,10 @@ place, collation words are packed from the offsets, the permutation comes
 from the device LSD chain (lex_argsort, length first) or, on a 'host'
 link verdict, from the native bucket sort; records are emitted from the
 raw bytes. Generic route: the padded batch is packed (names raw by
-bytes_to_words on the device) and sorted the same way.
+bytes_to_words on the device) and sorted the same way. -m MESH (or
+NGSTPU_MESH) above 1 takes the generic route and, with more than one
+device, sorts with the distributed sample sort (parallel/dsort.py) over
+min(MESH, devices) shards; the order is the same.
 
 Usage: python -m ngstpu_torch.tools.cli [--device DEV] gzfastq_sort
        -i IN [-o OUTFILE] [-s|-n] [-m MESH]
@@ -32,7 +35,9 @@ from ..ops.hostsort import (bytes_to_words_host, is_dna3_compatible,
                             sort_perm_host)
 from ..ops.sortengine import bytes_to_words, lex_argsort, pack_words, \
     seq_words, words_tensor
-from ..utils.device import check_mesh, resolve_device
+from ..parallel.dsort import distributed_sort
+from ..parallel.mesh import tool_mesh
+from ..utils.device import resolve_device
 from ..utils.linkprobe import link_verdict, probe_link
 from ..utils.timing import StageRusage, StageTimer
 from .emitters import _fresh, _RecyclingSink, _RingWriter
@@ -236,12 +241,18 @@ def _lens(lens: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def sort_perm_by_seq(batch, device: torch.device,
                      mesh_n: int = 0) -> np.ndarray:
-    if mesh_n > 1:
-        check_mesh(mesh_n, device)  # ngstpu's _mesh_perm
-    if _link_placement(batch.seq) == "host":
+    """The length-first sequence order. mesh_n > 1 runs the distributed
+    sample sort (parallel/dsort.py) over a 'dp' mesh of that many devices
+    of `device`'s kind, as far as there are; the order is the same."""
+    def host_words():
         kind = "dna3" if is_dna3_compatible(batch.seq, None) else "raw"
-        perm = sort_perm_host(pack_words(batch.seq, kind, device),
-                              batch.lens, True)
+        return pack_words(batch.seq, kind, device)
+
+    mesh = tool_mesh(mesh_n, device)
+    if mesh is not None:
+        return distributed_sort(mesh, host_words(), batch.lens)
+    if _link_placement(batch.seq) == "host":
+        perm = sort_perm_host(host_words(), batch.lens, True)
         if perm is not None:
             return perm
     words = seq_words(batch.seq, device)
@@ -257,8 +268,10 @@ def sort_perm_by_name(batch, device: torch.device,
     lmax = (lmax + 3) // 4 * 4
     padded = fill_padded(batch.names, batch.name_starts, batch.name_lens,
                          lmax)
-    if mesh_n > 1:
-        check_mesh(mesh_n, device)  # ngstpu's _mesh_perm
+    mesh = tool_mesh(mesh_n, device)
+    if mesh is not None:
+        return distributed_sort(mesh, bytes_to_words_host(padded),
+                                batch.name_lens)
     if _link_placement(padded) == "host":
         perm = sort_perm_host(bytes_to_words_host(padded), batch.name_lens,
                               True)
@@ -329,6 +342,7 @@ def _usage() -> None:
         "   [-i Infile] = Infile.\n"
         "   [-o OUTPUT] = OUTPUT file. default is stdout\n"
         "   [-s ] sort by sequence.\n"
-        "   [-m MESH] devices to shard the sort over (env NGSTPU_MESH);"
-        " one device only so far.\n"
+        "   [-m MESH] shard the sort over a MESH-device dp mesh"
+        " (env NGSTPU_MESH).\n"
+        "             On one host this is slower than one card.\n"
         "   [-n ] sort by sequence name.\n")

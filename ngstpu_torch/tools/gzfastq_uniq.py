@@ -11,7 +11,10 @@ indexed in place, one fused native pass packs 2-bit keys and quality sums,
 and the dedup sort runs as key-range partitions on the device (or on the
 host when the link verdict is 'host'). Generic route (stdin, other bases,
 NGSTPU_NO_FASTPATH): the whole batch is parsed, packed and deduplicated by
-dedup_groups on `device`.
+dedup_groups on `device`. -m MESH (or NGSTPU_MESH) above 1 takes the
+generic route and, with more than one device, deduplicates with the
+distributed dedup (parallel/dsort.py) over min(MESH, devices) shards; the
+output is the same.
 
 Usage: python -m ngstpu_torch.tools.cli [--device DEV] gzfastq_uniq
        -1 READ1 [-2 READ2] -o OUTFILE [-m MESH]
@@ -29,9 +32,11 @@ import torch
 from ..io.fastq import format_fastq, read_fastq_file
 from ..io.native import concat_pairs
 from ..io.stream import open_output, with_suffix
-from ..ops.hostsort import sum_quality_host
-from ..ops.sortengine import dedup_rows
-from ..utils.device import check_mesh, resolve_device
+from ..ops.hostsort import is_dna3_compatible, sum_quality_host
+from ..ops.sortengine import dedup_rows, pack_words
+from ..parallel.dsort import distributed_dedup
+from ..parallel.mesh import tool_mesh
+from ..utils.device import resolve_device
 from ..utils.linkprobe import link_verdict, probe_link
 from ..utils.timing import StageRusage, StageTimer
 from .emitters import (CHUNK_RECORDS, _CloningSink, _fresh, _RecyclingSink,
@@ -82,9 +87,19 @@ def _emit(out, batch, rep: np.ndarray, counts: np.ndarray,
 def dedup_device(seq_padded: np.ndarray, lens: np.ndarray, sumq: np.ndarray,
                  device: torch.device, mesh_n: int = 0):
     """Run the dedup on `device`; returns host arrays (heads in key-sorted
-    order): (rep_idx, counts, n_groups)."""
-    if mesh_n > 1:
-        check_mesh(mesh_n, device)
+    order): (rep_idx, counts, n_groups).
+
+    mesh_n > 1 shards the dedup over a 'dp' mesh of that many devices of
+    `device`'s kind, as far as there are (parallel/dsort.py: a hash-bucket
+    all_to_all and per-shard sorts); the result is bit-identical to the
+    single-device path."""
+    mesh = tool_mesh(mesh_n, device)
+    if mesh is not None:
+        kind = "dna3" if is_dna3_compatible(seq_padded, None) else "raw"
+        _, _, counts, rep = distributed_dedup(
+            mesh, pack_words(seq_padded, kind, device),
+            np.asarray(lens, np.int32), np.asarray(sumq))
+        return rep, counts, len(counts)
     g = dedup_rows(seq_padded, lens, sumq, len(lens), device)
     return g["rep"], g["counts"], g["n_groups"]
 
@@ -352,5 +367,8 @@ def _usage() -> None:
         "   [-1 READ1]  = fastq formated file1.   [required]\n"
         "   [-2 READ2]  = fastq formated file2.   [option]\n"
         "   [-o OUTPUT] = OUTPUT file.            [required]\n"
-        "   [-m MESH]   = devices to shard the dedup over (env NGSTPU_MESH);"
-        " one device only so far.\n")
+        "   [-m MESH]   = shard the dedup over a MESH-device dp mesh"
+        " (env NGSTPU_MESH).\n"
+        "                 On one host this is slower than one card: the"
+        " shards' groups\n"
+        "                 are merged on the host.\n")

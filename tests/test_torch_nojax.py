@@ -152,6 +152,10 @@ with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
 th.join(timeout=30)
 assert not th.is_alive()
 os.rmdir(os.path.dirname(sock))
+# the parallel layer: every sharded path on two CPU shards
+from ngstpu_torch.parallel import dryrun
+
+dryrun.dryrun_multichip(2, "cpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("NOJAX-OK")

@@ -7,13 +7,11 @@ import gzip
 import re
 
 import pytest
-import torch
 
 from ngstpu.testing.fixtures import gz, random_fastq, random_fastq_pair
 from ngstpu.tools.cli import main as jax_cli
 from ngstpu_torch.ops import sortengine
 from ngstpu_torch.tools.cli import main as torch_cli
-from ngstpu_torch.utils.device import check_mesh
 
 ROUTES = {"device": {"NGSTPU_LINK": "device"},
           "host": {"NGSTPU_LINK": "host"},
@@ -175,16 +173,6 @@ def test_mesh_on_one_device(tmp_path, capsys, monkeypatch, tool, argv,
     paths = _inputs(tmp_path, "varlen_gz")
     argv = [paths[0] if a == "IN" else a for a in argv]
     _run_both(tmp_path, capsys, monkeypatch, "device", tool, argv, outputs)
-
-
-def test_check_mesh_raises_above_one_device(monkeypatch):
-    cuda = torch.device("cuda", 0)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    check_mesh(4, cuda)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="the parallel/ item"):
-        check_mesh(4, cuda)
-    check_mesh(4, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("n,dup", [(0, 0.0), (1234, 0.3), (10001, 0.5)])
