@@ -23,6 +23,8 @@ import os
 import numpy as np
 import torch
 
+from ..utils.device import upload
+from ..utils.timing import span
 from .hostsort import (_pack_host, bytes_to_words_host, classify_alphabet,
                        is_dna3_compatible)
 
@@ -38,8 +40,7 @@ def words_tensor(words_np: np.ndarray, device: torch.device) -> torch.Tensor:
 
     The copy is synchronous: `words_np` may be reused when this returns."""
     w = np.ascontiguousarray(words_np, dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(w).to(device).to(torch.int64).bitwise_and_(
-        0xFFFFFFFF)
+    return upload(w, device).to(torch.int64).bitwise_and_(0xFFFFFFFF)
 
 
 def bytes_to_words(padded: torch.Tensor) -> torch.Tensor:
@@ -95,8 +96,7 @@ def pack_words(padded_np: np.ndarray, kind: str,
         if out is not None:
             return out
         fn = dna2_words if kind == "dna2" else dna3_words
-        words = fn(torch.from_numpy(np.ascontiguousarray(padded_np))
-                   .to(device))
+        words = fn(upload(padded_np, device))
         return words.cpu().numpy().astype(np.uint32)
     return bytes_to_words_host(padded_np)
 
@@ -114,8 +114,8 @@ def seq_words(padded_np: np.ndarray, device: torch.device,
         out = _pack_host(padded_np, "dna3")
         if out is not None:
             return words_tensor(out, device)
-        return dna3_words(torch.from_numpy(padded_np).to(device))
-    return bytes_to_words(torch.from_numpy(padded_np).to(device))
+        return dna3_words(upload(padded_np, device))
+    return bytes_to_words(upload(padded_np, device))
 
 
 def pack_for_dedup(padded_np: np.ndarray, device: torch.device,
@@ -327,8 +327,8 @@ def dedup_groups(words_np: np.ndarray, lens_np: np.ndarray,
                                     length_first)
     else:
         res = dedup_sorted(words_tensor(words_np, device),
-                           torch.from_numpy(lens_np).to(device),
-                           torch.from_numpy(sumq_np.view(np.int32)).to(device),
+                           upload(lens_np, device),
+                           upload(sumq_np.view(np.int32), device),
                            n_valid, length_first=length_first,
                            words_encode_len=words_encode_len,
                            maybe_padding=words_np.shape[0] != n_valid)
@@ -344,8 +344,11 @@ def dedup_groups(words_np: np.ndarray, lens_np: np.ndarray,
 def dedup_rows(padded_np: np.ndarray, lens_np: np.ndarray,
                sumq_np: np.ndarray, n_valid: int, device: torch.device):
     """dedup_groups over the narrowest key packing of zero-padded sequence
-    rows (ngstpu's pack_for_dedup + dedup_groups, lexicographic order)."""
-    kind = classify_alphabet(padded_np)
-    return dedup_groups(pack_words(padded_np, kind, device), lens_np,
-                        sumq_np, n_valid, device,
-                        words_encode_len=kind == "dna3")
+    rows (ngstpu's pack_for_dedup + dedup_groups, lexicographic order),
+    in spans dedup.pack and dedup.groups."""
+    with span("dedup.pack"):
+        kind = classify_alphabet(padded_np)
+        words = pack_words(padded_np, kind, device)
+    with span("dedup.groups"):
+        return dedup_groups(words, lens_np, sumq_np, n_valid, device,
+                            words_encode_len=kind == "dna3")

@@ -27,7 +27,7 @@ import torch
 from ..io.fastq import read_fastq_file
 from ..io.native import concat_pairs
 from ..utils.png import Canvas, write_png
-from ..utils.timing import StageRusage, StageTimer
+from ..utils.timing import StageRusage, StageTimer, request, span
 
 from ..ops.fastqc import (ADAPTER_BYTES, ADAPTERS, KMER_K, MAX_LEN,
                           adapter_content, adapter_content_host,
@@ -37,7 +37,7 @@ from ..ops.fastqc import (ADAPTER_BYTES, ADAPTERS, KMER_K, MAX_LEN,
                           overrepresented, parse_tile_ids, per_tile_quality,
                           per_tile_quality_host, truncated_key)
 from ..ops.sortengine import dedup_rows
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, upload
 from ..utils.linkprobe import probe_link
 
 NT_ROWS = "TCAGN"
@@ -62,53 +62,68 @@ def _sample_rows(b):
 def mate_modules(b, sample, placement: str, device: torch.device) -> dict:
     """Every per-mate module as host arrays: stats (fastqc_stats' dict),
     ac (adapter content [A, L]), tiles (None, or (sums, counts, tile
-    numbers)) and kc (k-mer counts [L, 4**7]). sample: _sample_rows(b)."""
+    numbers)) and kc (k-mer counts [L, 4**7]). sample: _sample_rows(b).
+    Each module's span ends when its results are on the host."""
     parsed, krows = sample
+    out = dict(tiles=None)
     if placement == "host":
-        out = dict(stats=fastqc_stats_host(b.seq, b.qual, b.lens, b.n),
-                   ac=adapter_content_host(b.seq, b.lens, b.n,
-                                           ADAPTER_BYTES),
-                   kc=kmer_position_counts_host(b.seq[krows], b.lens[krows],
-                                                len(krows)), tiles=None)
+        with span("modules.stats"):
+            out["stats"] = fastqc_stats_host(b.seq, b.qual, b.lens, b.n)
+        with span("modules.adapter"):
+            out["ac"] = adapter_content_host(b.seq, b.lens, b.n,
+                                             ADAPTER_BYTES)
         if parsed is not None:
             rows, ords, tiles = parsed
-            out["tiles"] = (*per_tile_quality_host(
-                b.qual[rows], b.lens[rows], len(rows), ords, len(tiles)),
-                tiles)
+            with span("modules.tiles"):
+                out["tiles"] = (*per_tile_quality_host(
+                    b.qual[rows], b.lens[rows], len(rows), ords, len(tiles)),
+                    tiles)
+        with span("modules.kmer"):
+            out["kc"] = kmer_position_counts_host(b.seq[krows], b.lens[krows],
+                                                  len(krows))
         return out
 
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    seq, qual, lens = up(b.seq), up(b.qual), up(b.lens.astype(np.int32))
-    out = dict(stats={k: v.cpu().numpy() for k, v in
-                      fastqc_stats(seq, qual, lens, b.n).items()},
-               ac=adapter_content(seq, lens, b.n, ADAPTER_BYTES).cpu().numpy(),
-               tiles=None)
+    with span("modules.upload"):
+        seq, qual = upload(b.seq, device), upload(b.qual, device)
+        lens = upload(b.lens.astype(np.int32), device)
+        kr = upload(krows, device)
+        if parsed is not None:
+            rows, ords, tiles = parsed
+            r, o = upload(rows, device), upload(ords, device)
+    with span("modules.stats"):
+        out["stats"] = {k: v.cpu().numpy() for k, v in
+                        fastqc_stats(seq, qual, lens, b.n).items()}
+    with span("modules.adapter"):
+        out["ac"] = adapter_content(seq, lens, b.n,
+                                    ADAPTER_BYTES).cpu().numpy()
     if parsed is not None:
-        rows, ords, tiles = parsed
-        r = up(rows)
-        sums, cnts = per_tile_quality(qual[r], lens[r], len(rows), up(ords),
-                                      len(tiles))
-        out["tiles"] = (sums.cpu().numpy(), cnts.cpu().numpy(), tiles)
-    r = up(krows)
-    out["kc"] = kmer_position_counts(seq[r], lens[r], len(krows)
-                                     ).cpu().numpy()
+        with span("modules.tiles"):
+            sums, cnts = per_tile_quality(qual[r], lens[r], len(rows), o,
+                                          len(tiles))
+            out["tiles"] = (sums.cpu().numpy(), cnts.cpu().numpy(), tiles)
+    with span("modules.kmer"):
+        out["kc"] = kmer_position_counts(seq[kr], lens[kr], len(krows)
+                                         ).cpu().numpy()
     return out
 
 
 def dup_groups(b1, b2, placement: str, device: torch.device):
-    """Dedup over the truncated key; returns (counts, rep, key, key_lens)."""
-    k1, l1 = truncated_key(b1.seq, b1.lens)
-    if b2 is not None:
-        k2, l2 = truncated_key(b2.seq, b2.lens)
-        width = ((k1.shape[1] + k2.shape[1] + 3) // 4) * 4
-        key = concat_pairs(k1, l1, k2, l2, width)
-        key_lens = (l1.astype(np.int64) + l2.astype(np.int64)).astype(np.int32)
-    else:
-        key, key_lens = k1, l1
+    """Dedup over the truncated key; returns (counts, rep, key, key_lens).
+    Spans: dedup.key, then dedup_rows' dedup.pack and dedup.groups (on
+    the host, dedup.groups alone)."""
+    with span("dedup.key"):
+        k1, l1 = truncated_key(b1.seq, b1.lens)
+        if b2 is not None:
+            k2, l2 = truncated_key(b2.seq, b2.lens)
+            width = ((k1.shape[1] + k2.shape[1] + 3) // 4) * 4
+            key = concat_pairs(k1, l1, k2, l2, width)
+            key_lens = (l1.astype(np.int64)
+                        + l2.astype(np.int64)).astype(np.int32)
+        else:
+            key, key_lens = k1, l1
     if placement == "host":
-        counts, rep = dedup_groups_host_native(key, key_lens)
+        with span("dedup.groups"):
+            counts, rep = dedup_groups_host_native(key, key_lens)
         return counts, rep, key, key_lens
     g = dedup_rows(key, key_lens, np.zeros(len(key_lens), np.uint32),
                    len(key_lens), device)
@@ -280,13 +295,50 @@ def _heatmap(path: str, mat: np.ndarray, q20_row: int, q30_row: int) -> None:
 
 
 def write_mate(out_prefix: str, idx: int, b, res: dict) -> None:
-    """Every per-mate file of ngstpu's fastqc from mate_modules' results."""
+    """Every per-mate file of ngstpu's fastqc from mate_modules' results:
+    the TSVs (span render.tsv), then each chart (render.png.<chart>)."""
+    with span("render.tsv"):
+        st = res["stats"]
+        L = min(st["quality"].shape[0], MAX_LEN)
+        qmat = np.zeros((128, MAX_LEN), dtype=np.int64)
+        qmat[:, :L] = st["quality"][:L, :].T
+        nmat = np.zeros((5, MAX_LEN), dtype=np.int64)
+        nmat[:, :L] = st["ntval"][:L, :].T
+        _write_tsvs(out_prefix, idx, b, res, qmat, nmat, L)
+    with span("render.png.q20q30"):
+        per_cycle = st["quality"][:L, :]
+        tot = per_cycle.sum(axis=1)
+        q20 = per_cycle[:, Q20:].sum(axis=1)
+        q30 = per_cycle[:, Q30:].sum(axis=1)
+        den = np.maximum(tot, 1)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            _chart_lines(f"{out_prefix}_q20q30_mate{idx}.png",
+                         {"Q20": np.where(tot > 0, q20 / den, 0),
+                          "Q30": np.where(tot > 0, q30 / den, 0)})
+    with span("render.png.quality_heatmap"):
+        _heatmap(f"{out_prefix}_quality_heatmap_mate{idx}.png", qmat, Q20,
+                 Q30)
+    with span("render.png.nucleotide"):
+        _chart_lines(f"{out_prefix}_nucleotide_mate{idx}.png",
+                     {NT_ROWS[r]: nmat[r, :L] for r in range(5)})
+    with span("render.png.gc_density"):
+        _gc_density_chart(f"{out_prefix}_gc_density_mate{idx}.png",
+                          st["gc_frac"][:b.n] * 100.0, L)
+    with span("render.png.boxplotquality"):
+        _boxplot_chart(f"{out_prefix}_boxplotquality_mate{idx}.png", qmat, L)
+    with span("render.png.length"):
+        _chart_lines(f"{out_prefix}_length_mate{idx}.png",
+                     {"len": st["len_hist"]})
+    with span("render.png.adapter"):
+        ac = res["ac"]
+        _chart_lines(f"{out_prefix}_adapter_mate{idx}.png",
+                     {name.split()[0] + str(a): ac[a]
+                      for a, (name, _) in enumerate(ADAPTERS)})
+
+
+def _write_tsvs(out_prefix: str, idx: int, b, res: dict, qmat: np.ndarray,
+                nmat: np.ndarray, L: int) -> None:
     st = res["stats"]
-    L = min(st["quality"].shape[0], MAX_LEN)
-    qmat = np.zeros((128, MAX_LEN), dtype=np.int64)
-    qmat[:, :L] = st["quality"][:L, :].T
-    nmat = np.zeros((5, MAX_LEN), dtype=np.int64)
-    nmat[:, :L] = st["ntval"][:L, :].T
     _write_matrix(f"{out_prefix}_quality_mate{idx}.tsv", qmat)
     _write_matrix(f"{out_prefix}_nucleotide_mate{idx}.tsv", nmat,
                   row_names=list(NT_ROWS))
@@ -301,23 +353,6 @@ def write_mate(out_prefix: str, idx: int, b, res: dict) -> None:
         for i, v in enumerate(gc_hist):
             f.write(f"{i / 100:.2f}\t{int(v)}\n")
 
-    # charts
-    per_cycle = st["quality"][:L, :]
-    tot = per_cycle.sum(axis=1)
-    q20 = per_cycle[:, Q20:].sum(axis=1)
-    q30 = per_cycle[:, Q30:].sum(axis=1)
-    with np.errstate(invalid="ignore", divide="ignore"):
-        _chart_lines(f"{out_prefix}_q20q30_mate{idx}.png",
-                     {"Q20": np.where(tot > 0, q20 / np.maximum(tot, 1), 0),
-                      "Q30": np.where(tot > 0, q30 / np.maximum(tot, 1), 0)})
-    _heatmap(f"{out_prefix}_quality_heatmap_mate{idx}.png", qmat, Q20, Q30)
-    _chart_lines(f"{out_prefix}_nucleotide_mate{idx}.png",
-                 {NT_ROWS[r]: nmat[r, :L] for r in range(5)})
-    _gc_density_chart(f"{out_prefix}_gc_density_mate{idx}.png", gc * 100.0, L)
-    _boxplot_chart(f"{out_prefix}_boxplotquality_mate{idx}.png", qmat, L)
-    _chart_lines(f"{out_prefix}_length_mate{idx}.png",
-                 {"len": st["len_hist"]})
-
     ac = res["ac"]
     with open(f"{out_prefix}_adapter_mate{idx}.tsv", "w") as f:
         f.write("#cycle\t" + "\t".join(n for n, _ in ADAPTERS) + "\n")
@@ -325,9 +360,6 @@ def write_mate(out_prefix: str, idx: int, b, res: dict) -> None:
             f.write(f"{i + 1}\t" + "\t".join(
                 f"{ac[a, i] * 100.0 / max(b.n, 1):.4f}"
                 for a in range(len(ADAPTERS))) + "\n")
-    _chart_lines(f"{out_prefix}_adapter_mate{idx}.png",
-                 {name.split()[0] + str(a): ac[a]
-                  for a, (name, _) in enumerate(ADAPTERS)})
 
     # per-base N content: the N row of the nucleotide matrix
     with open(f"{out_prefix}_ncontent_mate{idx}.tsv", "w") as f:
@@ -361,44 +393,54 @@ def write_mate(out_prefix: str, idx: int, b, res: dict) -> None:
 
 def run(out_prefix: str, fq1: str, fq2: str | None,
         device: torch.device) -> None:
-    """The report. With NGSTPU_STAGE_JSON set, the stage walls (parse,
-    placement, and per mate tile_names, modules, render; then dedup and
-    dup_render) are appended there as one JSON line."""
+    """The report, in span tool.fastqc (the root of a local run's
+    request). Its stages, in order, are spans too: parse, placement, per
+    mate tile_names, modules and render, then dedup and dup_render. With
+    NGSTPU_STAGE_JSON set, their walls, the call id and the spans are
+    appended there as one JSON line."""
     timer = StageTimer()
-    stages = StageRusage()
-    b1 = read_fastq_file(fq1)
-    b2 = read_fastq_file(fq2) if fq2 else None
-    stages.checkpoint("parse")
-    placement = _placement(b1)
-    stages.checkpoint("placement")
-    for idx, b in [(1, b1)] + ([(2, b2)] if b2 is not None else []):
-        sample = _sample_rows(b)
-        stages.checkpoint(f"tile_names{idx}")
-        res = mate_modules(b, sample, placement, device)
-        stages.checkpoint(f"modules{idx}")
-        write_mate(out_prefix, idx, b, res)
-        stages.checkpoint(f"render{idx}")
+    with request("tool.fastqc", "fastqc"):
+        stages = StageRusage()
+        with stages.stage("parse"):
+            with span("parse.read1"):
+                b1 = read_fastq_file(fq1)
+            b2 = None
+            if fq2:
+                with span("parse.read2"):
+                    b2 = read_fastq_file(fq2)
+        with stages.stage("placement"):
+            placement = _placement(b1)
+        for idx, b in [(1, b1)] + ([(2, b2)] if b2 is not None else []):
+            with stages.stage(f"tile_names{idx}"):
+                sample = _sample_rows(b)
+            with stages.stage(f"modules{idx}"):
+                res = mate_modules(b, sample, placement, device)
+            with stages.stage(f"render{idx}"):
+                write_mate(out_prefix, idx, b, res)
 
-    counts, rep, key, key_lens = dup_groups(b1, b2, placement, device)
-    stages.checkpoint("dedup")
-    dups = np.sort(counts)[::-1]
-    levels = np.bincount(np.minimum(dups, 100))
-    with open(f"{out_prefix}_duplication.tsv", "w") as f:
-        uniq_pct = (len(dups) / b1.n * 100) if b1.n else 0.0
-        f.write(f"#unique_reads\t{len(dups)}\t{uniq_pct:.3f}%\n")
-        for lvl in range(1, len(levels)):
-            if levels[lvl]:
-                f.write(f"{lvl}\t{int(levels[lvl])}\n")
-    _chart_lines(f"{out_prefix}_duplication.png", {"dup": levels[1:]})
-
-    # overrepresented sequences (> 0.1% of reads)
-    rows = overrepresented(key, key_lens, counts, rep, b1.n)
-    with open(f"{out_prefix}_overrepresented.tsv", "w") as f:
-        f.write("#sequence\tcount\tpercentage\n")
-        for s_, c, pct in rows:
-            f.write(f"{s_.decode('latin-1')}\t{c}\t{pct:.4f}\n")
-    stages.checkpoint("dup_render")
-    timer.log("Finished at %.3f s\n")
+        with stages.stage("dedup"):
+            counts, rep, key, key_lens = dup_groups(b1, b2, placement, device)
+        with stages.stage("dup_render"):
+            with span("render.tsv"):
+                dups = np.sort(counts)[::-1]
+                levels = np.bincount(np.minimum(dups, 100))
+                with open(f"{out_prefix}_duplication.tsv", "w") as f:
+                    uniq_pct = (len(dups) / b1.n * 100) if b1.n else 0.0
+                    f.write(f"#unique_reads\t{len(dups)}\t{uniq_pct:.3f}%\n")
+                    for lvl in range(1, len(levels)):
+                        if levels[lvl]:
+                            f.write(f"{lvl}\t{int(levels[lvl])}\n")
+            with span("render.png.duplication"):
+                _chart_lines(f"{out_prefix}_duplication.png",
+                             {"dup": levels[1:]})
+            # overrepresented sequences (> 0.1% of reads)
+            with span("dup.overrepresented"):
+                rows = overrepresented(key, key_lens, counts, rep, b1.n)
+                with open(f"{out_prefix}_overrepresented.tsv", "w") as f:
+                    f.write("#sequence\tcount\tpercentage\n")
+                    for s_, c, pct in rows:
+                        f.write(f"{s_.decode('latin-1')}\t{c}\t{pct:.4f}\n")
+        timer.log("Finished at %.3f s\n")
     stages.dump(verdict=placement)
 
 

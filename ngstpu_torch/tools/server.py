@@ -36,8 +36,20 @@ DEFAULT_SOCKET = "/tmp/ngstpu_torch.sock"
 def _run_tool(tool: str, argv: list[str], cwd: str,
               device) -> tuple[int, bytes, bytes]:
     """One request: `tool` run as the CLI runs it on `device`, in `cwd`,
-    with stdout and stderr captured. A tool's exception gives rc 1 and a
-    message; it never reaches the server."""
+    with stdout and stderr captured, in span server.request (the root of
+    the request's spans). A tool's exception gives rc 1 and a message; it
+    never reaches the server."""
+    from ..utils.timing import request
+
+    with request("server.request", tool) as req:
+        rc, out, err = _run_captured(tool, argv, cwd, device)
+        if req is not None:
+            req.rc = rc
+    return rc, out, err
+
+
+def _run_captured(tool: str, argv: list[str], cwd: str,
+                  device) -> tuple[int, bytes, bytes]:
     from .cli import TOOLS, run
 
     if tool not in TOOLS:

@@ -7,7 +7,10 @@ chip_smoke.py ask for ``cuda`` and fail when there is none; tests pass
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .timing import COUNTS
 
 
 def resolve_device(name: str | torch.device = "cuda") -> torch.device:
@@ -23,3 +26,13 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
         raise ValueError(f"unsupported device {str(name)!r} (cuda or cpu)")
     return dev
 
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """`a` as a tensor on `device` (a C-contiguous copy where `a` is not),
+    its bytes counted in timing.COUNTS["h2d_bytes"] unless the target is
+    the CPU: every host-to-device copy of fastqc's path goes through
+    here."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cpu":
+        COUNTS["h2d_bytes"] += t.nbytes
+    return t.to(device)

@@ -261,6 +261,28 @@ def test_trace_writes_profile(inputs, tmp_path, monkeypatch, capsys):
     assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
 
 
+def test_trace_holds_fastqc_spans(inputs, tmp_path, monkeypatch):
+    """NGSTPU_TRACE=<dir> on a local fastqc run: the trace holds the
+    program's spans, tool.fastqc and its stages, as user annotations; no
+    server.request, since a local run does not go through _run_tool."""
+    trace = tmp_path / "trace"
+    monkeypatch.setenv("NGSTPU_TRACE", str(trace))
+    monkeypatch.setenv("NGSTPU_LINK", "device")
+    argv = ["--device", "cpu", "fastqc", str(tmp_path / "r"),
+            str(inputs / "n.fq")]
+    assert cli.main(argv) == 0
+    files = list(trace.glob("fastqc.*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert names.count("tool.fastqc") == 1
+    for stage in ("parse", "placement", "tile_names1", "modules1", "render1",
+                  "dedup", "dup_render", "parse.read1", "modules.stats",
+                  "render.png.gc_density", "dedup.key"):
+        assert names.count(stage) == 1, stage
+    assert "server.request" not in names
+
+
 def test_serve_without_card_fails():
     """`serve` resolves its device first: asking for cuda without a card
     raises, and nothing listens. Never a CPU fallback."""
