@@ -113,6 +113,9 @@ def get_lib() -> ctypes.CDLL | None:
             _p_u8, _i64, _p_i32, _p_i64,                      # seq
             _p_u8, _i64, _p_i32, _p_i64,                      # qual
             _i64, _p_i64, _p_u8, _int]
+        lib.ngs_tile_ids.restype = _i64
+        lib.ngs_tile_ids.argtypes = [_p_u8, _p_i64, _p_i32, _p_i64, _i64,
+                                     _p_i64]
         lib.ngs_fastq_index.argtypes = [
             _p_u8, _i64, _p_i64,
             _p_i64, _p_i32, _p_i64, _p_i32, _p_i64, _p_i32, _int]
@@ -312,6 +315,28 @@ def format_fastq_take(names: np.ndarray, name_starts: np.ndarray,
         np.ascontiguousarray(qual), qual.shape[1], qlens32, idx_q,
         k, out_starts, out, 0)
     return out.data  # zero-copy buffer; file.write accepts memoryview
+
+
+def tile_ids(names: np.ndarray, name_starts: np.ndarray,
+             name_lens: np.ndarray, rows: np.ndarray) -> np.ndarray | None:
+    """Illumina tile numbers of the names at `rows` (int64), in one native
+    pass over the name blob (ngs_tile_ids): the name up to its first space
+    or tab, split on ':'; field 5 of 7 or more fields, field 3 of 5 or 6,
+    as a decimal. Returns None when the native library is unavailable or
+    any of those rows has fewer than 5 fields or a tile field that is not
+    1 to 18 ASCII digits (the caller falls back)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    names = np.ascontiguousarray(names, np.uint8)
+    rows = np.ascontiguousarray(rows, np.int64)
+    tiles = np.empty(len(rows), np.int64)
+    if len(rows) and lib.ngs_tile_ids(
+            names, np.ascontiguousarray(name_starts, np.int64),
+            np.ascontiguousarray(name_lens, np.int32), rows, len(rows),
+            tiles):
+        return None
+    return tiles
 
 
 def parse_fastq_chunk(data: np.ndarray, pad_to: int,

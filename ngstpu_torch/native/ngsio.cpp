@@ -602,6 +602,43 @@ void ngs_format_fastq_take(
 }
 
 // ---------------------------------------------------------------------------
+// Illumina tile numbers of sampled reads (fastqc's per-tile module, FastQC's
+// rule as ops/fastqc.py:parse_tile_ids states it). For rows[k]: the name up
+// to its first space or tab, split on ':'; field 5 of 7 or more fields,
+// field 3 of 5 or 6, read as a decimal into tiles[k]. Returns how many rows
+// have fewer than 5 fields or a tile field that is not 1 to 18 ASCII digits
+// (their tiles[k] is left unset): 0 means every tile was read. Reads only
+// each name's own bytes, [name_starts[r], name_starts[r] + name_lens[r]).
+// ---------------------------------------------------------------------------
+int64_t ngs_tile_ids(const uint8_t* names, const int64_t* name_starts,
+                     const int32_t* name_lens, const int64_t* rows,
+                     int64_t k_total, int64_t* tiles) {
+    int64_t bad = 0;
+    for (int64_t k = 0; k < k_total; ++k) {
+        const uint8_t* p = names + name_starts[rows[k]];
+        const int32_t len = name_lens[rows[k]];
+        int32_t colon[6];  // the head's first six ':'
+        int n_colon = 0;
+        for (int32_t i = 0; i < len && n_colon < 6; ++i) {
+            if (p[i] == ' ' || p[i] == '\t') break;
+            if (p[i] == ':') colon[n_colon++] = i;
+        }
+        int f;  // the tile field's index
+        if (n_colon >= 6) f = 4;
+        else if (n_colon >= 4) f = 2;
+        else { ++bad; continue; }
+        int32_t i = colon[f - 1] + 1, e = colon[f];
+        if (e - i < 1 || e - i > 18) { ++bad; continue; }
+        int64_t v = 0;
+        for (; i < e && p[i] >= '0' && p[i] <= '9'; ++i)
+            v = v * 10 + (p[i] - '0');
+        if (i < e) { ++bad; continue; }
+        tiles[k] = v;
+    }
+    return bad;
+}
+
+// ---------------------------------------------------------------------------
 // Parallel gzip (multi-stream) compression: compress n_blocks independent
 // gzip members concurrently; concatenated members form a valid gzip file.
 // Caller provides per-block bounds; returns per-block compressed sizes.

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..kernels.hist_cuda import N_QUAL, qc_hist_accumulate_
+from ..utils.timing import COUNTS
 
 MAX_LEN = 300  # reference Rgzfastq_uniq.c:26
 KMER_K = 7  # FastQC Kmer module word size
@@ -413,7 +414,40 @@ def parse_tile_ids(batch, step: int = 1):
     """Illumina tile numbers from read names (host side). FastQC's rule:
     split the id on ':'; >= 7 fields (CASAVA 1.8+) -> field 5, 5..6
     fields -> field 3. Returns (row_idx int64 [Bs], tile_ordinal int32
-    [Bs], sorted unique tiles) or None when names carry no tiles."""
+    [Bs], sorted unique tiles) or None when names carry no tiles.
+
+    Fast path: one native pass over the batch's name blob
+    (io/native.tile_ids) reads every sampled row's tile, and np.unique
+    gives the ordinals. It falls back to the per-name loop
+    (_parse_tile_ids_loop, the rule's definition) when the batch has no
+    name blob, the native library is unavailable, or any sampled name has
+    fewer than 5 fields or a tile field that is not 1 to 18 ASCII digits
+    (int() also takes '+12', '-12', '1_2' or a leading vertical tab, and
+    the loop decides what those mean). Both give the same result, types
+    included.
+    COUNTS["tile_rows_native"] / ["tile_rows_loop"] count the sampled rows
+    each path was handed."""
+    from ..io.native import tile_ids
+
+    rows = np.arange(0, batch.n, step, dtype=np.int64)
+    names = getattr(batch, "names", None)
+    tiles = (None if names is None else
+             tile_ids(names, batch.name_starts, batch.name_lens, rows))
+    if tiles is None:
+        COUNTS["tile_rows_loop"] += len(rows)
+        return _parse_tile_ids_loop(batch, step)
+    COUNTS["tile_rows_native"] += len(rows)
+    if not len(tiles):
+        return None
+    uniq, ords = np.unique(tiles, return_inverse=True)
+    if len(uniq) > 2048:  # not plausibly tile numbers
+        return None
+    return rows, ords.astype(np.int32), uniq.tolist()
+
+
+def _parse_tile_ids_loop(batch, step: int):
+    """parse_tile_ids, one name at a time in Python: the definition, and
+    the fallback for names the native pass does not read."""
     rows, tiles = [], []
     for i in range(0, batch.n, step):
         name = batch.name(i)

@@ -20,9 +20,12 @@ launched. A finished request goes into a bounded in-process record, read
 with `requests()`. Requests are taken one at a time, as the warm server
 takes them.
 
-COUNTS holds process-wide byte counters, always on: `h2d_bytes`, every
-host-to-device copy made through utils/device.upload. A request's record
-keeps each counter's change over the request.
+COUNTS holds process-wide counters, always on: `h2d_bytes`, the bytes of
+every host-to-device copy made through utils/device.upload;
+`tile_rows_native` and `tile_rows_loop`, the sampled rows whose tile
+numbers ops/fastqc.parse_tile_ids read in its native pass and in its
+per-name loop. A request's record keeps each counter's change over the
+request.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import resource
 import sys
 import time
 
-COUNTS: collections.Counter = collections.Counter(h2d_bytes=0)
+COUNTS: collections.Counter = collections.Counter(
+    h2d_bytes=0, tile_rows_native=0, tile_rows_loop=0)
 
 _RECORD: collections.deque = collections.deque(maxlen=4096)
 _CALL_IDS = itertools.count(1)

@@ -82,7 +82,12 @@ def test_request_record(pair, record, monkeypatch):
     assert len(record) == 1
     rec = record[0]
     assert rec["tool"] == "fastqc" and rec["rc"] == 0
-    assert set(rec["counts"]) == {"h2d_bytes"}
+    assert set(rec["counts"]) == {"h2d_bytes", "tile_rows_native",
+                                  "tile_rows_loop"}
+    # every read of both 600-read mates is sampled, the native pass reads
+    # all their tiles
+    assert rec["counts"]["tile_rows_native"] == 1200
+    assert rec["counts"]["tile_rows_loop"] == 0
     spans = rec["spans"]
     assert [s[0] for s in spans] == sorted({s[0] for s in spans})
     by_id = {s[0]: s for s in spans}
