@@ -20,6 +20,9 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
+from contextlib import nullcontext
+from multiprocessing import get_context
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -30,7 +33,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "ngstpu")
 # The keys a traffic mix may hold. The harness drives every mix as a
 # closed loop with one caller, taking the input sets in turn; a mix that
 # asks for another load needs new code here, not a key that nothing reads.
-TRAFFIC_KEYS = {"tool", "argv", "reads_per_file", "sets", "why"}
+# gzip_level (1-9) writes every input file as .fq.gz at that level, in
+# BGZF, the layout bcl2fastq2 writes (gen.fastq.bgzf_file).
+TRAFFIC_KEYS = {"tool", "argv", "reads_per_file", "sets", "gzip_level", "why"}
 
 
 def forbidden_modules() -> list[str]:
@@ -77,6 +82,10 @@ class Layout:
                              f"{sorted(unknown)} are not the harness's, or "
                              "fewer than 2 input sets (a call's answer must "
                              "differ from the previous call's)")
+        level = traffic.get("gzip_level", 1)
+        if type(level) is not int or not 1 <= level <= 9:
+            raise ValueError(f"traffic {wl['traffic']!r}: gzip_level "
+                             f"{level!r} is not a whole number from 1 to 9")
         return SimpleNamespace(name=workload, chips=wl["chips"], config=cfg,
                                traffic=traffic)
 
@@ -153,20 +162,38 @@ class MemorySampler:
 def make_inputs(cell, seed: int, work: Path) -> list[dict]:
     """The mix's input sets, written under `work` from the seed and synced
     to disk, so that no write-back of them falls in the window: per set
-    its mate files and their reads and bases."""
+    its mate files and their reads and bases. A mix with gzip_level has
+    each file compressed to BGZF in a child process of its own as its set
+    is written, and keeps only the .fq.gz, with its compressed bytes."""
     t = cell.traffic
     mates = 2 if cell.config["layout"] == "PE" else 1
+    level = t.get("gzip_level")
     (work / "in").mkdir()
-    sets = []
-    for j in range(t["sets"]):
-        paths = [str(work / "in" / f"s{j}_m{m + 1}.fq") for m in range(mates)]
-        shape = gen.write_set(cell.config, t["reads_per_file"], seed, j, paths)
-        for p in paths:
-            fd = os.open(p, os.O_RDONLY)
-            os.fsync(fd)
-            os.close(fd)
-        sets.append(dict(paths=paths, reads=sum(r for r, _ in shape),
-                         files=[dict(reads=r, bases=b) for r, b in shape]))
+    sets, pending = [], []
+    # zlib's buffers stay out of this process's heap, which the window's
+    # peak_rss_gib reads
+    with (nullcontext() if level is None else ProcessPoolExecutor(
+            t["sets"] * mates, mp_context=get_context("spawn"))) as pool:
+        for j in range(t["sets"]):
+            paths = [str(work / "in" / f"s{j}_m{m + 1}.fq")
+                     for m in range(mates)]
+            shape = gen.write_set(cell.config, t["reads_per_file"], seed, j,
+                                  paths)
+            files = [dict(reads=r, bases=b) for r, b in shape]
+            if level is None:
+                for p in paths:
+                    fd = os.open(p, os.O_RDONLY)
+                    os.fsync(fd)
+                    os.close(fd)
+            else:
+                pending += [(f, pool.submit(gen.bgzf_file, p, p + ".gz",
+                                            level))
+                            for f, p in zip(files, paths)]
+                paths = [p + ".gz" for p in paths]
+            sets.append(dict(paths=paths, reads=sum(r for r, _ in shape),
+                             files=files))
+        for f, fut in pending:
+            f["compressed_bytes"] = fut.result()
     return sets
 
 

@@ -22,6 +22,10 @@ The same configuration, read count and seed give the same bytes.
 
 from __future__ import annotations
 
+import os
+import struct
+import zlib
+
 import numpy as np
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -182,3 +186,40 @@ def write_set(cfg: dict, n: int, seed: int, index: int, paths) -> list:
     per mate. The matrices are dropped before it returns."""
     return [write_fastq(p, m) for p, m in zip(paths, make_set(cfg, n, seed,
                                                                  index))]
+
+
+# BGZF (the SAM/BAM format specification, section 4.1): gzip members that
+# each carry a BC extra field with the member's size less one, at most
+# 64 KiB a member, and an empty member at the end. A member takes 0xff00
+# input bytes, as htslib's bgzf.c fills them.
+BGZF_BLOCK = 0xFF00
+BGZF_EOF = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000")
+_BGZF_HEAD = struct.Struct("<4BI2BH2BHH")
+
+
+def bgzf_file(src: str, dst: str, level: int) -> int:
+    """Compresses `src` into `dst` as BGZF at zlib `level`, the layout in
+    which bcl2fastq2 writes its .fastq.gz by default: mtime 0 and no file
+    name in any member (the same bytes in give the same bytes out). Syncs
+    `dst` to disk, deletes `src` and returns the compressed size."""
+    with open(src, "rb") as f:
+        data = memoryview(f.read())
+    with open(dst, "wb") as out:
+        for lo in range(0, len(data), BGZF_BLOCK):
+            block = data[lo:lo + BGZF_BLOCK]
+            z = zlib.compressobj(level, zlib.DEFLATED, -15)
+            body = z.compress(block) + z.flush()
+            # BSIZE, the member's size less one, packs as 16 bits or
+            # raises: no member passes the format's 64 KiB
+            bsize = _BGZF_HEAD.size + len(body) + 8 - 1
+            out.write(_BGZF_HEAD.pack(0x1F, 0x8B, 8, 4, 0, 0, 0xFF, 6,
+                                      ord("B"), ord("C"), 2, bsize))
+            out.write(body)
+            out.write(struct.pack("<II", zlib.crc32(block), len(block)))
+        out.write(BGZF_EOF)
+        out.flush()
+        os.fsync(out.fileno())
+        size = out.tell()
+    os.unlink(src)
+    return size

@@ -44,6 +44,8 @@ breaks the configuration's guarantee that every read is counted.
 
 from __future__ import annotations
 
+import gzip
+
 import numpy as np
 import torch
 
@@ -64,12 +66,19 @@ _ROWS = 1 << 18  # rows per block of device work
 
 
 class Fastq:
-    """One FASTQ file: its reads as zero-padded byte matrices on `device`
-    (qualities padded with 255, which no count takes), their lengths, and
-    the name lines. `sample` keeps every sample-th record."""
+    """One FASTQ file, plain or gzip (by its first two bytes): its reads as
+    zero-padded byte matrices on `device` (qualities padded with 255,
+    which no count takes), their lengths, and the name lines. `sample`
+    keeps every sample-th record."""
 
     def __init__(self, path: str, device, sample: int = 1):
-        data = np.fromfile(path, np.uint8)
+        with open(path, "rb") as f:
+            gz = f.read(2) == b"\x1f\x8b"
+        if gz:
+            with gzip.open(path, "rb") as f:
+                data = np.frombuffer(f.read(), np.uint8)
+        else:
+            data = np.fromfile(path, np.uint8)
         if len(data) and data[-1] != 0x0A:
             data = np.append(data, np.uint8(0x0A))
         ends = np.flatnonzero(data == 0x0A)

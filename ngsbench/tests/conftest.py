@@ -19,13 +19,19 @@ sys.path.insert(0, str(REPO))
 
 def copy_layout(dst: Path) -> Path:
     """BENCHMARK.json and the benchmark's folder (without its tests) under
-    `dst`, with a tiny mix `tiny_lane`, a single-end configuration
-    `tiny_se100`, and cells tiny_se and tiny_pe."""
+    `dst`, with a tiny mix `tiny_lane`, its gzip twin `tiny_lane_gz` (the
+    mix fastqc_pairs_512k_gz at 3,000 reads a file), a single-end
+    configuration `tiny_se100`, and cells tiny_se, tiny_pe and
+    tiny_pe_gz."""
     shutil.copytree(FOLDER, dst / "ngsbench",
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
-    (dst / "ngsbench" / "traffic" / "tiny_lane.json").write_text(json.dumps(
+    traffic = dst / "ngsbench" / "traffic"
+    (traffic / "tiny_lane.json").write_text(json.dumps(
         {"tool": "fastqc", "argv": ["{out}", "{inputs}"],
          "reads_per_file": 3000, "sets": 2}))
+    gz = json.loads((traffic / "fastqc_pairs_512k_gz.json").read_text())
+    (traffic / "tiny_lane_gz.json").write_text(json.dumps(
+        {**gz, "reads_per_file": 3000}))
     # the tool also takes single-end lanes: the PE 100 lane's reads, one mate
     se = json.loads((FOLDER / "configs" / "hpngs_pe100.json").read_text())
     se.update(name="tiny_se100", layout="SE")
@@ -35,14 +41,16 @@ def copy_layout(dst: Path) -> Path:
     bench["configs"].append({"name": "tiny_se100", "source": "a test",
                              "file": "ngsbench/configs/tiny_se100.json",
                              "reduced": ["layout"], "why": "a test"})
-    for name, cfg in (("tiny_se", "tiny_se100"),
-                      ("tiny_pe", "novaseq_s4_pe150")):
+    for name, cfg, mix in (("tiny_se", "tiny_se100", "tiny_lane"),
+                           ("tiny_pe", "novaseq_s4_pe150", "tiny_lane"),
+                           ("tiny_pe_gz", "novaseq_s4_pe150",
+                            "tiny_lane_gz")):
         bench["workloads"].append({"name": name, "config": cfg,
-                                   "traffic": "tiny_lane", "chips": 1,
+                                   "traffic": mix, "chips": 1,
                                    "why": "a CPU test"})
     for m in bench["per_layer"]:
         if "workloads" in m:
-            m["workloads"] += ["tiny_se", "tiny_pe"]
+            m["workloads"] += ["tiny_se", "tiny_pe", "tiny_pe_gz"]
     (dst / "BENCHMARK.json").write_text(json.dumps(bench))
     return dst
 

@@ -5,6 +5,7 @@ that needs the card skips without it."""
 
 from __future__ import annotations
 
+import gzip
 import re
 from pathlib import Path
 
@@ -20,7 +21,7 @@ def inputs_of(argv):
     return argv[1:]
 
 
-@pytest.mark.parametrize("workload", ["tiny_se", "tiny_pe"])
+@pytest.mark.parametrize("workload", ["tiny_se", "tiny_pe", "tiny_pe_gz"])
 def test_sound_run(tiny, workload):
     _, run = tiny
     r = run(workload, 2 ** 31 + 13)
@@ -28,19 +29,20 @@ def test_sound_run(tiny, workload):
     assert {c["value"] for c in r["checks"].values()} == {0}
 
 
-@pytest.mark.parametrize("workload", ["tiny_se", "tiny_pe"])
+@pytest.mark.parametrize("workload", ["tiny_se", "tiny_pe", "tiny_pe_gz"])
 def test_traced_run(tiny, workload):
     _, run = tiny
     r = run(workload, 17, trace=True)
     assert r["correct"]
     assert {"fastqc.host_s_per_mreads", "fastqc.modules_s_per_mreads",
-            "device.idle_share"} <= set(r["metrics"])
+            "fastqc.parse_s_per_mreads", "device.idle_share"} <= \
+        set(r["metrics"])
     assert r["device"]["window_s"] > 0
     assert {s for s, _ in r["breakdown"]["idle_gaps"]} & {"render1",
                                                          "modules1"}
 
 
-@pytest.mark.parametrize("workload", ["tiny_se", "tiny_pe"])
+@pytest.mark.parametrize("workload", ["tiny_se", "tiny_pe", "tiny_pe_gz"])
 def test_control_fails(tiny, workload):
     """The reference from every second read, counts doubled, written where
     the program writes its files."""
@@ -62,11 +64,14 @@ def faulty(kind):
         if kind == "half_batch":  # the first half of the reads alone
             halves = []
             for p in inputs_of(argv):
-                lines = Path(p).read_bytes().split(b"\n")[:-1]
-                half = p + ".half"
-                Path(half).write_bytes(b"\n".join(
-                    lines[:len(lines) // 8 * 4]) + b"\n")
-                halves.append(half)
+                data = Path(p).read_bytes()
+                gz = data[:2] == b"\x1f\x8b"
+                lines = (gzip.decompress(data) if gz else data).split(
+                    b"\n")[:-1]
+                half = b"\n".join(lines[:len(lines) // 8 * 4]) + b"\n"
+                Path(p + ".half").write_bytes(
+                    gzip.compress(half, 1, mtime=0) if gz else half)
+                halves.append(p + ".half")
             return real(name, [argv[0]] + halves, cwd, device)
         rc, out, err = real(name, argv, cwd, device)
         if kind == "call_fails":  # the window's calls write, then fail
@@ -83,14 +88,15 @@ def faulty(kind):
     return tool
 
 
+@pytest.mark.parametrize("workload", ["tiny_se", "tiny_pe_gz"])
 @pytest.mark.parametrize("kind,numbers", [
     ("state_unchanged", {"quality", "length", "duplication"}),
     ("half_batch", {"quality", "length", "duplication"}),
     ("answer_altered", {"quality"}),
     ("call_fails", {"calls_rc_nonzero"})])
-def test_fault_fails(tiny, kind, numbers):
+def test_fault_fails(tiny, kind, numbers, workload):
     _, run = tiny
-    r = run("tiny_se", 31, tool=faulty(kind))
+    r = run(workload, 31, tool=faulty(kind))
     assert not r["correct"] and r["failed"] == r["attempted"]
     bad = {k for k, c in r["checks"].items() if c["value"] > c["limit"]}
     assert numbers <= bad

@@ -72,6 +72,9 @@ def test_new_files_found_by_name(tiny):
         {"name": "calls_per_s", "unit": "calls/s", "better": "higher",
          "source": "host_clock", "layer": "harness", "moves": "reads_per_s",
          "workloads": ["tiny_count", "tiny_miseq_qc"]})
+    idle = next(m for m in bench["per_layer"]
+                if m["name"] == "device.idle_share")
+    idle["workloads"] += ["tiny_count", "tiny_miseq_qc"]
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     after = digest(root)
     assert {k: after[k] for k in before if k.name != "BENCHMARK.json"} == \
@@ -91,11 +94,14 @@ def test_new_files_found_by_name(tiny):
 
 
 @pytest.mark.parametrize("change", [{"callers": 4}, {"order": "random"},
-                                    {"sets": 1}])
+                                    {"sets": 1}, {"gzip_level": 0},
+                                    {"gzip_level": 10}, {"gzip_level": "1"},
+                                    {"gzip_level": True}])
 def test_mix_asking_for_another_load_is_refused(tiny, change):
-    """A mix key the harness does not drive, or a single input set (each
-    call's answer would equal the previous call's), stops the run before
-    it starts instead of being run as something else."""
+    """A mix key the harness does not drive, a single input set (each
+    call's answer would equal the previous call's) or a gzip_level that is
+    not a whole number from 1 to 9 stops the run before it starts instead
+    of being run as something else."""
     from ngsbench import core
 
     root, _ = tiny

@@ -180,3 +180,27 @@ def test_tile_field_read_as_an_integer(tmp_path, field, tiles):
     if tiles:
         assert [line.split("\t")[0] for line in got.splitlines()[1:]] == \
             tiles
+
+
+def test_gzip_input_reads_as_plain(tmp_path):
+    """A .fastq.gz, known by its magic and not its name, gives every file
+    the plain copy gives, control included."""
+    import gzip
+    import json
+
+    from ngsbench.gen import fastq as gen
+
+    cfg = json.loads((FOLDER / "configs" / "novaseq_s4_pe150.json")
+                     .read_text())
+    plain = [str(tmp_path / f"m{m}.fq") for m in (1, 2)]
+    gen.write_set(cfg, 6000, 2 ** 31 + 3, 0, plain)
+    gz = []
+    for m, p in enumerate(plain, 1):
+        gz.append(str(tmp_path / f"m{m}.fastq"))
+        gen.bgzf_file(p, gz[-1], 4)
+        with gzip.open(gz[-1], "rb") as f:
+            open(p, "wb").write(f.read())
+    for sample in (1, 2):
+        exp = ref.expected(plain, "cpu", sample)
+        assert "_per_tile_mate2.tsv" in exp and "_duplication.tsv" in exp
+        assert ref.expected(gz, "cpu", sample) == exp
